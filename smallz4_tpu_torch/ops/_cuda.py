@@ -1,0 +1,155 @@
+"""Build, binding and launch counters for the hand-written CUDA kernels.
+
+The sources in ``smallz4_tpu_torch/csrc/*.cu`` expose a plain C interface.
+At first use they are compiled with ``nvcc`` for ``sm_90a`` into
+``smallz4_tpu_torch/build/libs4kernels.so`` (rebuilt whenever a source or
+flag changes: a stamp file beside it holds their hash) and loaded with
+``ctypes``.  Every entry point returns ``cudaGetLastError()`` after its
+launches; a non-zero code raises here.
+
+``LAUNCHES`` counts, per kernel wrapper, the calls that went to the card.
+Nothing is imported or built when this module is imported.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import pathlib
+import shutil
+import subprocess
+import threading
+
+import torch
+
+_PKG = pathlib.Path(__file__).resolve().parent.parent
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG / "build"
+LIB_NAME = "libs4kernels.so"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+#: wrapper name -> number of launches on a CUDA device
+LAUNCHES = {"sort_records": 0, "merge_sorted": 0, "probe": 0, "compact": 0,
+            "pack": 0}
+
+_lock = threading.Lock()
+_lib = None
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_SIGNATURES = {
+    # in, out, tmp, B, P, n, n_keys, unique, stream
+    "s4_sort_records": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # in, out, B, P, n, n_keys, unique, stream
+    "s4_merge_halves": [_P, _P, _I, _I, _I, _I, _I, _P],
+    # planes, payload, key, cut_gram, cut_pos, match_limit, B, n, chunk,
+    # probes (host int32 array), n_probes, stream
+    "s4_probe": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _I, _P],
+    # key, payload, okey, opay, B, n, chunk, stream
+    "s4_compact": [_P, _P, _P, _P, _I, _I, _I, _P],
+    # lens, dists, conv, lk, bits, packed, count, cbits, kbits, B, chunk,
+    # stream
+    "s4_pack": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P],
+}
+
+
+def reset_counts() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def _sources() -> list[pathlib.Path]:
+    return sorted(CSRC.glob("*.cu"))
+
+
+def _digest() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in _sources():
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") \
+        or "/usr/local/cuda"
+    cand = pathlib.Path(home) / "bin" / "nvcc"
+    if cand.is_file():
+        return str(cand)
+    raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+
+
+def build() -> tuple[pathlib.Path, str]:
+    """Compile the kernels unless the library matches the current sources;
+    returns (library path, compiler log of this build or '')."""
+    lib_path = BUILD_DIR / LIB_NAME
+    stamp = BUILD_DIR / (LIB_NAME + ".sha256")
+    digest = _digest()
+    if lib_path.is_file() and stamp.is_file() and stamp.read_text() == digest:
+        return lib_path, ""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = BUILD_DIR / f".{LIB_NAME}.{os.getpid()}"
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, _sources())]
+    res = subprocess.run(cmd, capture_output=True, text=True)
+    if res.returncode != 0:
+        raise RuntimeError(
+            f"nvcc failed ({res.returncode}):\n{res.stdout}\n{res.stderr}")
+    os.replace(tmp, lib_path)  # atomic: a concurrent loader sees old or new
+    stamp.write_text(digest)
+    log = res.stdout + res.stderr
+    (BUILD_DIR / "nvcc.log").write_text(log)
+    return lib_path, log
+
+
+def lib():
+    """The loaded kernel library (built at first use)."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            path, _ = build()
+            handle = ctypes.CDLL(str(path))
+            for name, argtypes in _SIGNATURES.items():
+                fn = getattr(handle, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            handle.s4_error_string.argtypes = [ctypes.c_int]
+            handle.s4_error_string.restype = ctypes.c_char_p
+            _lib = handle
+        return _lib
+
+
+def check_inputs(*tensors: torch.Tensor) -> None:
+    """Kernel inputs: one device, contiguous."""
+    dev = tensors[0].device
+    for t in tensors:
+        if t.device != dev:
+            raise ValueError(f"tensors on {t.device} and {dev}")
+        if not t.is_contiguous():
+            raise ValueError("kernel inputs must be contiguous")
+
+
+def on_cuda(t: torch.Tensor) -> bool:
+    """True for a CUDA tensor (kernel route), False for a CPU tensor (the
+    plain version); any other device raises."""
+    if t.device.type == "cuda":
+        return True
+    if t.device.type == "cpu":
+        return False
+    raise ValueError(f"unsupported device {t.device}")
+
+
+def launch(counter: str, fn: str, device: torch.device, *args) -> None:
+    """Call entry point ``fn`` on ``device``'s current stream; raise on an
+    error, count the launch otherwise."""
+    handle = lib()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = getattr(handle, fn)(*args, stream)
+    if err != 0:
+        msg = handle.s4_error_string(err).decode()
+        raise RuntimeError(f"{fn} failed: CUDA error {err} ({msg})")
+    LAUNCHES[counter] += 1

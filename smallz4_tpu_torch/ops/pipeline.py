@@ -1,0 +1,450 @@
+"""The 'device' engine: the chunk-engine encode on one torch device.
+
+Port of ``smallz4_tpu/ops/pipeline.py`` (``compress`` and the chunk path
+``_compress_chunked``).  The device runs the match search
+(``ops.chunkmatch.match_chunks``, one call per group of GROUP chunks); the
+host runtime (``smallz4_tpu.native``) unpacks the claims, refines
+uncertified positions, runs the optimal-parse DP, fixes distances and emits,
+in a worker pool.  With ``parity=True`` the stream is bit-identical to
+``native.compress(data, 9)`` and ``smallz4 -9``.
+
+Every torch call stays on the calling thread and on the device's current
+stream: inputs go up as host-to-device copies, results come back as
+non-blocking copies into pinned host buffers, and one CUDA event per group
+marks them ready.  Pool threads touch only numpy arrays and the native
+runtime.
+"""
+from __future__ import annotations
+
+import os
+import threading
+import time
+
+import numpy as np
+import torch
+
+from smallz4_tpu import format as fmt
+from smallz4_tpu import native
+from smallz4_tpu.parallel import host as host_par
+
+from . import chunkmatch as cm
+
+HALO = fmt.MAX_DISTANCE  # 64 KB - 1: the dependent-block history window
+
+
+def _blocks(n: int, block_size: int):
+    return [(i, min(i + block_size, n)) for i in range(0, n, block_size)]
+
+
+def _deep_run_rule(ctxb, base_r, bs, lens, dists, conv, lk):
+    """Host certificate for giant byte runs (the reference's rule, copied:
+    smallz4_tpu/ops/pipeline.py _deep_run_rule).  When a position's whole
+    64 KB window lies inside one equal-byte run, every window candidate
+    ties at e = min(run_rest, cap) and the reference keeps the d=1
+    achiever, except at e == MaxSameLetter-1, which stays refined."""
+    a = ctxb
+    n_ctx = len(a)
+    if n_ctx == 0:
+        return
+    new = np.empty(n_ctx, bool)
+    new[0] = True
+    np.not_equal(a[1:], a[:-1], out=new[1:])
+    starts = np.flatnonzero(new)
+    ends = np.append(starts[1:], n_ctx)
+    if int((ends - starts).max()) <= fmt.MAX_DISTANCE:
+        return  # no run can contain a whole window
+    rid = np.cumsum(new, dtype=np.int32) - 1
+    sl = slice(base_r, base_r + bs)
+    rs = starts[rid[sl]]
+    re_ = ends[rid[sl]]
+    i = np.arange(bs, dtype=np.int64)
+    j = base_r + i
+    capv = np.maximum(bs - fmt.BLOCK_END_LITERALS - i, 0)
+    # rs is clamped at the context start, which only under-reports run
+    # depth: sound (misses fall through to the refine path)
+    deep = ((j - rs >= fmt.MAX_DISTANCE)
+            & (i >= fmt.MAX_DISTANCE + fmt.BLOCK_END_NO_MATCH))
+    e = np.minimum(re_ - j, capv)
+    ok = deep & (e != fmt.MAX_SAME_LETTER - 1)
+    if not ok.any():
+        return
+    m4 = ok & (e >= fmt.MIN_MATCH)
+    lens[m4] = e[m4]
+    dists[m4] = 1
+    m1 = ok & (e < fmt.MIN_MATCH)
+    lens[m1] = 1
+    dists[m1] = 0
+    conv[ok] = True
+    lk[ok] = True
+
+
+def resolve_device(device) -> torch.device:
+    """``device`` as a torch.device; a CUDA device without CUDA raises."""
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                f"device {dev} requested but torch.cuda.is_available() is "
+                f"False")
+        if dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
+    elif dev.type != "cpu":
+        raise ValueError(f"unsupported device {dev}")
+    return dev
+
+
+def compress(data, level: int = 9, legacy: bool = False, dictionary=None,
+             block_size: int | None = None, parity: bool = True,
+             device="cuda", stats: dict | None = None) -> bytes:
+    """Compress via the device match search on ``device`` (a CUDA device
+    runs the hand-written kernels, the CPU their plain versions).  Levels
+    other than 9 and small-block parity streams go to the native encoder,
+    as in the reference.  ``stats``, if given, receives per-stage wall
+    times and counters (``n_*``), and on a CUDA device the device time of
+    the match search (``device_match_ms``)."""
+    dev = resolve_device(device)
+    data = bytes(data)
+    if legacy and dictionary:
+        raise ValueError("legacy format doesn't support dictionaries")
+    if level != 9:
+        # capped-chain levels have serial skip/probe semantics: host path
+        return native.compress(data, level, legacy=legacy,
+                               dictionary=dictionary, block_size=block_size)
+    if (legacy and block_size not in (None, fmt.MAX_BLOCK_SIZE_LEGACY)
+            and len(data) > block_size):
+        # a short non-final legacy block would end the stream early
+        raise ValueError(
+            "legacy multi-block streams require the fixed 8 MB block size")
+    if block_size is None:
+        block_size = fmt.MAX_BLOCK_SIZE_LEGACY if legacy else fmt.MAX_BLOCK_SIZE
+
+    # Small-block parity streams go to the sequential native encoder: below
+    # 64 KB + 12 the reference's per-block replay diverges from any
+    # halo-context reconstruction (the reference pipeline's fine print).
+    if (parity and not legacy and len(data) > block_size
+            and block_size < fmt.MAX_DISTANCE + fmt.BLOCK_END_NO_MATCH):
+        return native.compress(data, level, legacy=legacy,
+                               dictionary=dictionary, block_size=block_size)
+    if block_size % (cm.GROUP * cm.CHUNK) != 0:
+        # the reference falls back to its 'sort' / 'walk' kernels here
+        raise NotImplementedError(
+            f"block_size % {cm.GROUP * cm.CHUNK} != 0 needs the 'sort' "
+            f"search, which is not ported yet (ROADMAP.md, queue 1: the "
+            f"sort engine)")
+
+    dict_tail = b""
+    if dictionary and not legacy:
+        dict_tail = bytes(dictionary)[-fmt.MAX_DISTANCE:]
+    out = bytearray(fmt.build_frame_header(legacy))
+    stages: dict = {}
+    _compress_chunked(out, data, dict_tail + data, len(dict_tail),
+                      _blocks(len(data), block_size), legacy, parity, stages,
+                      dev)
+    out += fmt.build_end_mark(legacy)
+    if stats is not None:
+        stats.update(stages)
+    return bytes(out)
+
+
+def _compress_chunked(out, data, vdata, d, blocks, legacy, parity, stages,
+                      dev):
+    """Chunk-engine stream loop: one ``match_chunks`` call per GROUP
+    chunks; within a block each call carries its last chunk's sorted
+    records to the next as the halo.  Each block's leading halo is sorted
+    from its raw history bytes, so blocks are independent.  Packed results
+    come back to pinned host memory; refine (parity mode) + DP + emit run
+    in the worker pool.
+
+    Contract (checked by the caller): block_size % (GROUP*CHUNK) == 0, so
+    every block starts at a call boundary and the boundary cut binds to
+    that call's chunk 0."""
+    CH, G, CAP = cm.CHUNK, cm.GROUP, cm.HEAD_CAP
+    # speculative packed prefix copied with every group; a group whose
+    # largest head count exceeds it pays one more synchronous copy
+    PREFETCH = min(CAP, max(256, CH // 8))
+    n = len(data)
+    arr = np.frombuffer(data, np.uint8)
+    on_card = dev.type == "cuda"
+    count_lock = threading.Lock()  # finish() runs in the worker pool
+
+    def add(key, v):
+        stages[key] = stages.get(key, 0) + v
+
+    def to_dev(a: np.ndarray) -> torch.Tensor:
+        t = torch.from_numpy(a)
+        return t.pin_memory().to(dev, non_blocking=True) if on_card else t
+
+    def to_host(t: torch.Tensor) -> torch.Tensor:
+        if not on_card:
+            return t
+        h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+        h.copy_(t.contiguous(), non_blocking=True)
+        return h
+
+    def block_halo(start):
+        """Sorted halo records for the block at ``start``."""
+        if legacy or (start == 0 and not d):
+            return cm.empty_halo(chunk=CH, device=dev)
+        hb = np.zeros(CH + cm.LOOK, np.uint8)
+        if start == 0:  # dictionary tail, right-aligned (virtual prefix)
+            lo_valid = CH - d
+            hb[lo_valid:CH] = np.frombuffer(vdata[:d], np.uint8)
+        else:           # preceding 64 KiB of the stream
+            lo_valid = 0
+            hb[:CH] = arr[start - CH: start]
+        take = min(cm.LOOK, n - start)
+        if take > 0:
+            hb[CH: CH + take] = arr[start: start + take]
+        return cm.sort_chunk(to_dev(hb), lo_valid, CH, chunk=CH)
+
+    def dispatch_block(start, end):
+        """Queue every group of one block on the device."""
+        bs = end - start
+        n_groups = -(-bs // (G * CH))
+        block_cut = (not legacy) and start >= fmt.MAX_DISTANCE + fmt.BLOCK_END_NO_MATCH
+        halo = block_halo(start)
+        entries = []
+        for gi in range(n_groups):
+            g0 = gi * G
+            bufs = np.zeros((G, CH + cm.LOOK), np.uint8)
+            cand = np.zeros(G, np.int32)
+            lim = np.zeros(G, np.int32)
+            for j in range(G):
+                cs = start + (g0 + j) * CH
+                take = max(0, min(CH + cm.LOOK, n - cs))
+                if take:
+                    bufs[j, :take] = arr[cs: cs + take]
+                cand[j] = max(0, min(CH, bs - (g0 + j) * CH))
+                lim[j] = bs - (g0 + j) * CH - fmt.BLOCK_END_LITERALS
+            if gi == 0 and block_cut:
+                cut_gram = cm.pack_cut_gram(
+                    data[start - fmt.BLOCK_END_NO_MATCH:
+                         start - fmt.BLOCK_END_NO_MATCH + 4])
+                cut_pos = CH - fmt.BLOCK_END_NO_MATCH
+            else:
+                cut_gram, cut_pos = 0, -1
+            timing = None
+            if on_card:
+                timing = (torch.cuda.Event(enable_timing=True),
+                          torch.cuda.Event(enable_timing=True))
+                timing[0].record()
+            cand_d = to_dev(cand)
+            # claim validity ends where candidate validity does
+            halo, ys = cm.match_chunks(
+                halo, to_dev(bufs), cand_d, cand_d, to_dev(lim), cut_gram,
+                cut_pos, n_chunks=G, head_cap=CAP, chunk=CH)
+            add("n_h2d_bytes", bufs.nbytes + cand.nbytes + lim.nbytes)
+            bits, packed, counts, cbits, kbits = ys
+            # start the host copies now; certificate bits are consumed
+            # only by the parity refine
+            host = [to_host(a) for a in (bits, counts, packed[:, :PREFETCH])
+                    + ((cbits, kbits) if parity else ())]
+            done = None
+            if on_card:
+                timing[1].record()
+                done = torch.cuda.Event()
+                done.record()
+            entries.append((g0, packed, host, done, timing))
+        return entries
+
+    def collect_block(entries):
+        """Wait for one block's results (calling thread); unpacking
+        happens in the pool."""
+        fetched = []
+        for g0, packed, host, done, timing in entries:
+            if done is not None:
+                done.synchronize()
+                add("device_match_ms", timing[0].elapsed_time(timing[1]))
+            # own copies: the pinned buffers are released on this thread
+            bits_np, counts_np, pk = (h.numpy().copy() for h in host[:3])
+            maxp = max(1, int(counts_np.max()))
+            if maxp > PREFETCH:
+                pk = packed[:, : min(maxp, CAP)].cpu().numpy()
+            cbits_np, kbits_np = ((host[3].numpy().copy(),
+                                   host[4].numpy().copy())
+                                  if parity else (None, None))
+            add("n_d2h_bytes", bits_np.nbytes + pk.nbytes + counts_np.nbytes
+                + (cbits_np.nbytes + kbits_np.nbytes if parity else 0))
+            fetched.append((g0, bits_np, pk, counts_np, cbits_np, kbits_np))
+        return fetched
+
+    def unpack_block(start, end, fetched):
+        bs = end - start
+        lens = np.ones(bs, np.int32)
+        dists = np.zeros(bs, np.int32)
+        conv = np.ones(bs, bool)
+        lk = np.ones(bs, bool)
+        redo = np.zeros(bs, bool)
+        for g0, bits_np, pk, counts_np, cbits_np, kbits_np in fetched:
+            cv_rows = (cm.unpack_bits_rows(cbits_np, CH)
+                       if cbits_np is not None else None)
+            lk_rows = (cm.unpack_bits_rows(kbits_np, CH)
+                       if kbits_np is not None else None)
+            for j in range(G):
+                o = (g0 + j) * CH
+                if o >= bs:
+                    break
+                w = min(CH, bs - o)
+                if counts_np[j] > CAP:  # head overflow: host redoes chunk
+                    redo[o: o + w] = True
+                    conv[o: o + w] = False
+                    lk[o: o + w] = False
+                    continue
+                l, dd = native.unpack_claims(
+                    bits_np[j], pk[j, : counts_np[j]], CH)
+                lens[o: o + w] = l[:w]
+                dists[o: o + w] = dd[:w]
+                if cv_rows is not None:
+                    conv[o: o + w] = cv_rows[j, :w]
+                if lk_rows is not None:
+                    lk[o: o + w] = lk_rows[j, :w]
+        return lens, dists, conv, lk, redo
+
+    def finish(start, end, fetched):
+        """Worker-pool tail: unpack + pre-DP length refine (parity /
+        overflow) + DP + post-DP distance fix + emit.  ``fetched is None``
+        = CPU-assist block: the whole search runs on the host matcher
+        (exact, so parity-mode output is independent of which engine a
+        block landed on)."""
+        bs = end - start
+        vstart, vend = start + d, end + d
+        block_cut = (not legacy) and start >= fmt.MAX_DISTANCE + fmt.BLOCK_END_NO_MATCH
+        if fetched is None:
+            lens = np.ones(bs, np.int32)
+            dists = np.zeros(bs, np.int32)
+            conv = np.zeros(bs, bool)
+            lk = np.zeros(bs, bool)
+            redo = np.ones(bs, bool)
+        else:
+            lens, dists, conv, lk, redo = unpack_block(start, end, fetched)
+        lo = vstart if legacy else max(vstart - HALO, 0)
+        base_r = vstart - lo
+        ctxb = np.frombuffer(vdata[lo:vend], np.uint8)
+        cut = (base_r - fmt.BLOCK_END_NO_MATCH) if block_cut else -1
+        if fetched is not None:
+            _deep_run_rule(ctxb, base_r, bs, lens, dists, conv, lk)
+        tail = min(fmt.BLOCK_END_NO_MATCH - 1, bs)
+        lens[bs - tail:] = 1
+        dists[bs - tail:] = 0
+        conv[bs - tail:] = True
+        lk[bs - tail:] = True
+        redo[bs - tail:] = False
+        mask = ~lk if parity else redo
+        if fetched is not None:  # certificate miss rate: device blocks only
+            with count_lock:
+                add("n_refine_positions", int(mask.sum()))
+                add("n_positions", bs)
+        wholesale = False
+        if mask.any():
+            if parity and mask.mean() > 0.5:
+                # high-miss regime: a wholesale exact search beats
+                # per-position refine and leaves every position exact
+                wholesale = True
+                native.match_block_ex(
+                    ctxb, base=base_r, bs=bs, level=9, lookback=base_r,
+                    cut_pos=cut, lens=lens, dists=dists)
+                conv[:] = True
+                if fetched is not None:
+                    with count_lock:
+                        add("n_wholesale_blocks", 1)
+            else:
+                native.match_refine(
+                    ctxb, base=base_r, bs=bs, lookback=base_r,
+                    mask=mask, lens=lens, dists=dists, cut_pos=cut)
+                conv |= mask  # refined positions are fully exact
+        lens_claim = lens.copy() if parity else None
+        native.estimate_costs(lens, dists)
+        if parity and not wholesale and fetched is not None:
+            # post-DP distance fix at the chosen match starts only
+            need = native.chosen_mask(lens) & ~conv
+            if need.any():
+                native.match_refine_dist(
+                    ctxb, base=base_r, bs=bs, lookback=base_r,
+                    mask=need, targets=lens_claim,
+                    lens=lens_claim, dists=dists, cut_pos=cut)
+                with count_lock:
+                    add("n_dist_fix_positions", int(need.sum()))
+        payload = native.emit_block(data[start:end], lens, dists)
+        if len(payload) < bs or legacy:
+            return payload, False
+        return data[start:end], True
+
+    # in-flight blocks: bounds device and host result memory
+    WINDOW = 8
+    n_cores = min(32, os.cpu_count() or 1)
+    pending = []  # (bi, start, end, entries)
+    jobs = {}     # bi -> future of (payload, stored)
+
+    # CPU assist: in parity mode every block encodes to the same bytes
+    # whichever engine it lands on, so idle host workers take whole blocks
+    # from the BACK of the stream while the device works from the front.
+    # Off in fast mode by default (the output would depend on scheduling).
+    assist_default = str(n_cores) if parity else "0"
+    n_assist = max(0, int(os.environ.get("SMALLZ4_TPU_CPU_ASSIST",
+                                         assist_default)))
+    fence = threading.Lock()
+    claim = {"front": 0, "back": len(blocks)}
+
+    def claim_front():
+        with fence:
+            if claim["front"] >= claim["back"]:
+                return -1
+            bi = claim["front"]
+            claim["front"] += 1
+            return bi
+
+    def assist_loop():
+        while True:
+            with fence:
+                if claim["back"] - 1 < claim["front"]:
+                    return
+                claim["back"] -= 1
+                bi = claim["back"]
+            start, end = blocks[bi]
+            jobs[bi] = _Done(finish(start, end, None))
+
+    # one worker per core for the finish tail PLUS one per assist loop (an
+    # assist occupies its worker for a whole block); the native stages
+    # release the GIL
+    n_assist = min(n_assist, max(0, len(blocks) - 1))
+    pool = host_par._pool(n_cores + n_assist)
+    assist_futures = [pool.submit(assist_loop) for _ in range(n_assist)]
+
+    def drain(limit):
+        t = time.perf_counter()
+        while len(pending) > limit:
+            bi, start, end, entries = pending.pop(0)
+            fetched = collect_block(entries)
+            jobs[bi] = pool.submit(finish, start, end, fetched)
+        add("device_sync", time.perf_counter() - t)
+
+    while True:
+        bi = claim_front()
+        if bi < 0:
+            break
+        start, end = blocks[bi]
+        t0 = time.perf_counter()
+        pending.append((bi, start, end, dispatch_block(start, end)))
+        add("device_dispatch", time.perf_counter() - t0)
+        add("n_device_blocks", 1)
+        drain(WINDOW)
+    drain(0)
+    for f in assist_futures:
+        f.result()
+
+    t0 = time.perf_counter()
+    for bi, (start, end) in enumerate(blocks):
+        payload, stored = jobs[bi].result()
+        out += fmt.build_block_header(len(payload), stored, legacy)
+        out += payload
+    add("host_refine_dp_emit", time.perf_counter() - t0)
+
+
+class _Done:
+    """A finished result with the future interface (assist blocks)."""
+
+    def __init__(self, value):
+        self._value = value
+
+    def result(self):
+        return self._value

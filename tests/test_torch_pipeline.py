@@ -1,0 +1,216 @@
+"""PyTorch port of the chunk-engine stream pipeline
+(smallz4_tpu_torch/ops/pipeline.py) and its public API.
+
+The port's pipeline runs at C = 1024 (one chunk per group) on the CPU,
+where every kernel wrapper takes its plain PyTorch version, through the
+seven scenarios of the reference's own pipeline tests
+(tests/test_chunkmatch.py): parity, small-block delegation, fast
+round-trip, head overflow, CPU assist, legacy and dictionary.  Parity
+streams must equal native.compress byte for byte, and one parity=False
+stream must equal the reference engine's (smallz4_tpu pipeline,
+kernel="chunk", Pallas interpret mode).
+"""
+import ast
+import pathlib
+import shutil
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+import smallz4_tpu_torch
+from smallz4_tpu import native
+from smallz4_tpu_torch.ops import _cuda, pipeline
+from smallz4_tpu_torch.ops import chunkmatch as tcm
+
+C = 1024
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+
+
+def _mixed_stream(n, seed=5):
+    """The reference tests' generator (tests/test_chunkmatch.py)."""
+    rng = np.random.default_rng(seed)
+    parts = []
+    while sum(map(len, parts)) < n:
+        r = rng.random()
+        if r < 0.3:
+            parts.append(bytes(rng.integers(0, 256, 200, dtype=np.uint8)))
+        elif r < 0.6:
+            parts.append(bytes(rng.integers(97, 103, 300, dtype=np.uint8)))
+        elif r < 0.8 and parts:
+            parts.append(parts[rng.integers(0, len(parts))])
+        else:
+            parts.append(bytes([rng.integers(0, 256)])
+                         * int(rng.integers(5, 200)))
+    return b"".join(parts)[:n]
+
+
+@pytest.fixture()
+def tiny(monkeypatch):
+    """Shrink the port's chunk engine to C = 1024, one chunk per group.
+    As in the reference, bit parity at this size holds while every
+    candidate fits in (halo chunk, current chunk): parity data <= 2*C."""
+    monkeypatch.setattr(tcm, "CHUNK", C)
+    monkeypatch.setattr(tcm, "GROUP", 1)
+    monkeypatch.setattr(tcm, "HEAD_CAP", C)
+
+
+def _compress(data, **kw):
+    return pipeline.compress(data, 9, device="cpu", **kw)
+
+
+def test_parity(tiny):
+    data = _mixed_stream(2 * C)
+    stats = {}
+    got = _compress(data, block_size=2 * C, stats=stats)
+    assert got == native.compress(data, 9, block_size=2 * C)
+    assert stats["n_device_blocks"] == 1 and stats["n_positions"] == 2 * C
+
+
+def test_parity_small_blocks_delegate(tiny):
+    data = _mixed_stream(2 * C)
+    got = _compress(data, block_size=C)
+    assert got == native.compress(data, 9, block_size=C)
+
+
+def test_fast_roundtrip(tiny):
+    data = _mixed_stream(4 * C + 700)
+    fast = _compress(data, block_size=2 * C, parity=False)
+    assert native.decompress(fast) == data
+    want = native.compress(data, 9, block_size=2 * C)
+    assert len(fast) <= int(len(want) * 1.10) + 64
+
+
+def test_head_overflow(tiny, monkeypatch):
+    """Chunks with more heads than HEAD_CAP are redone on the host."""
+    monkeypatch.setattr(tcm, "HEAD_CAP", 8)
+    data = _mixed_stream(2 * C, seed=3)
+    assert (_compress(data, block_size=2 * C)
+            == native.compress(data, 9, block_size=2 * C))
+    fast = _compress(data, block_size=2 * C, parity=False)
+    assert native.decompress(fast) == data
+
+
+def test_cpu_assist(tiny, monkeypatch):
+    """Host workers take whole blocks from the back of the stream."""
+    monkeypatch.setenv("SMALLZ4_TPU_CPU_ASSIST", "1")
+    data = _mixed_stream(6 * C + 100, seed=17)
+    stats = {}
+    fast = _compress(data, block_size=2 * C, parity=False, stats=stats)
+    assert native.decompress(fast) == data
+    assert 1 <= stats["n_device_blocks"] < 4  # some blocks were assisted
+
+
+def test_legacy(tiny):
+    data = _mixed_stream(C + 200, seed=23)  # single legacy block
+    got = _compress(data, legacy=True, block_size=2 * C)
+    assert got == native.compress(data, 9, legacy=True, block_size=2 * C)
+
+
+def test_dictionary(tiny):
+    dict_data = _mixed_stream(700, seed=9)
+    data = dict_data[100:500] + _mixed_stream(C - 400, seed=10)
+    got = _compress(data, block_size=C, dictionary=dict_data)
+    assert got == native.compress(data, 9, block_size=C,
+                                  dictionary=dict_data)
+
+
+def test_fast_stream_equals_reference_engine(tiny, monkeypatch):
+    """parity=False keeps raw device claims, so the stream shows any claim
+    difference: it must equal the JAX engine's stream."""
+    pytest.importorskip("jax")
+    from jax.experimental.pallas import tpu as pltpu
+
+    from smallz4_tpu.ops import chunkmatch as ref_cm
+    from smallz4_tpu.ops import pipeline as ref_pipeline
+
+    monkeypatch.setattr(ref_cm, "CHUNK", C)
+    monkeypatch.setattr(ref_cm, "GROUP", 1)
+    monkeypatch.setattr(ref_cm, "HEAD_CAP", C)
+    data = _mixed_stream(2 * C, seed=8)  # one block: two groups, one carry
+    with pltpu.force_tpu_interpret_mode():
+        want = ref_pipeline.compress(data, 9, block_size=2 * C, parity=False,
+                                     kernel="chunk")
+    assert _compress(data, block_size=2 * C, parity=False) == want
+
+
+def test_public_api(tiny):
+    data = _mixed_stream(2 * C, seed=31)
+    frame = smallz4_tpu_torch.compress(data, 9, block_size=2 * C,
+                                       engine="device", device="cpu")
+    assert frame == native.compress(data, 9, block_size=2 * C)
+    assert smallz4_tpu_torch.decompress(frame) == data
+    assert smallz4_tpu_torch.compress(data) == native.compress(data, 9)
+    assert smallz4_tpu_torch.get_version() == smallz4_tpu_torch.VERSION
+
+
+def test_levels_below_9_use_native():
+    data = _mixed_stream(3000, seed=2)
+    assert (pipeline.compress(data, 5, device="cpu")
+            == native.compress(data, 5))
+
+
+def test_unsupported_requests_raise(tiny):
+    data = _mixed_stream(3 * C)
+    with pytest.raises(NotImplementedError, match="sort"):
+        _compress(data, block_size=C + 512, parity=False)
+    with pytest.raises(NotImplementedError, match="decode"):
+        smallz4_tpu_torch.decompress(b"", engine="device")
+    with pytest.raises(ValueError):
+        smallz4_tpu_torch.compress(data, engine="tpu")
+
+
+def test_cuda_device_without_cuda_raises():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError, match="cuda"):
+        smallz4_tpu_torch.compress(b"abc" * 100, 9, engine="device",
+                                   device="cuda")
+
+
+def _imports(path):
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+
+
+def test_port_imports_no_jax():
+    files = sorted((ROOT / "smallz4_tpu_torch").rglob("*.py"))
+    files.append(ROOT / "chip_smoke.py")
+    assert len(files) >= 7
+    for f in files:
+        for name in _imports(f):
+            assert not (name == "jax" or name.startswith("jax.")
+                        or name.startswith("smallz4_tpu.ops")), (f, name)
+
+
+def test_chip_smoke_fails_without_cuda_or_repo(tmp_path):
+    """chip_smoke.py prints no result without a card, and fails when it is
+    alone in a directory."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    alone = tmp_path / "chip_smoke.py"
+    shutil.copy(ROOT / "chip_smoke.py", alone)
+    for script in (ROOT / "chip_smoke.py", alone):
+        res = subprocess.run([sys.executable, str(script)],
+                             capture_output=True, text=True, timeout=120,
+                             cwd=script.parent)
+        assert res.returncode != 0
+        assert '"ok"' not in res.stdout
+
+
+@pytest.mark.cuda
+def test_pipeline_on_cuda_equals_native(tiny):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    data = _mixed_stream(2 * C)
+    _cuda.reset_counts()
+    got = pipeline.compress(data, 9, block_size=2 * C, device="cuda")
+    assert got == native.compress(data, 9, block_size=2 * C)
+    # one block of two groups; its halo sort adds one sort launch
+    assert _cuda.LAUNCHES == {"sort_records": 3, "merge_sorted": 2,
+                              "probe": 2, "compact": 2, "pack": 2}
