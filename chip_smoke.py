@@ -3,24 +3,35 @@
 
     python3 chip_smoke.py
 
-Run from the repository root; needs one CUDA device and nvcc, no network
-and no arguments.  Phases:
+Run from the repository root; needs one CUDA device, nvcc and g++, no
+network and no arguments.  Phases:
 
   0. card: name and power limit (nvidia-smi); no CUDA -> exit 2;
-  1. build: compile csrc/*.cu for sm_90a (timed);
-  2. kernels: on one full group (64 chunks x 64 Ki positions) of the
-     committed real-data fixture, each CUDA kernel against its plain
+  1. build: compile csrc/*.cu for sm_90a and the port's native runtime
+     (timed);
+  2. chunk-engine kernels: on one full group (64 chunks x 64 Ki positions)
+     of the committed real-data fixture, each CUDA kernel against its plain
      PyTorch version on the card, exact equality, both timed with CUDA
      events; plus the device time of one whole match_chunks group;
-  3. end to end, with SMALLZ4_TPU_CPU_ASSIST=0 so every block goes through
-     the device: the port's compress(data, 9) on the 10 MB fixture (modern
-     and legacy frames) and on make_corpus(8 MiB) must equal
-     native.compress byte for byte and decode back; one parity=False
-     stream must round-trip; launch counters must match the groups run.
+  2b. sort-engine kernels: on one full match_segments dispatch (8 segments
+     of the fixture, a live boundary cut in row 0, one padding row), the
+     record sort at [8, 5, 2^17] with two keys, the neighbour scan (with the
+     unsort), the chain and the run lengths against their plain versions;
+     plus the device time of one whole dispatch;
+  3. chunk engine end to end, with SMALLZ4_TPU_CPU_ASSIST=0 so every block
+     goes through the device: compress(data, 9) on the 10 MB fixture
+     (modern and legacy) and on make_corpus(8 MiB) must equal
+     native.compress byte for byte and decode back; one parity=False stream
+     must round-trip; launch counters must match the groups run;
+  3b. sort engine end to end: the fixture at 1 MiB blocks (the fallback
+     route) and at 4 MiB blocks with kernel="sort", equal to native and
+     decoding back, one launch of each sort-engine kernel per dispatch; one
+     parity=False sort-engine stream must round-trip.
 
-Prints a {"kernels": [...]} JSON line, the nvidia-smi line, and as the last
-line {"ok": true, "device": {...}}.  Any failure raises (exit != 0) before
-that line.
+Prints a {"kernels": [...]} JSON line (each kernel's launches on its main
+path, error, kernel / plain / library time and bound), the nvidia-smi line,
+and as the last line {"ok": true, "device": {...}}.  Any failure raises
+(exit != 0) before that line.
 """
 from __future__ import annotations
 
@@ -47,7 +58,21 @@ KERNELS = [  # (counter, source, replaced TPU kernel)
      "smallz4_tpu/ops/chunkmatch.py:396"),
     ("pack", "smallz4_tpu_torch/csrc/pack.cu",
      "smallz4_tpu/ops/chunkmatch.py:428"),
+    ("scan", "smallz4_tpu_torch/csrc/sortmatch.cu",
+     "smallz4_tpu/ops/sortmatch.py:102"),
+    ("chain", "smallz4_tpu_torch/csrc/sortmatch.cu",
+     "smallz4_tpu/ops/sortmatch.py:159"),
+    ("run_lengths", "smallz4_tpu_torch/csrc/runlen.cu",
+     "smallz4_tpu/ops/pallas_kernels.py:145"),
 ]
+CHUNK_KERNELS = ("sort_records", "merge_sorted", "probe", "compact", "pack")
+SORT_KERNELS = ("sort_records", "scan", "chain", "run_lengths")
+
+# H100 SXM peaks (NVIDIA's data sheet, at a 700 W power limit): HBM rate,
+# and the 32-bit rate outside the tensor cores (67 TFLOP/s float32), taken
+# as the ceiling of the kernels' 32-bit integer operations
+HBM_BYTES_PER_S = 3.35e12
+OPS_PER_S = 67e12
 
 
 def log(*a):
@@ -96,6 +121,46 @@ def max_err(torch, got, want) -> int:
     return int((got.long() - want.long()).abs().max())
 
 
+def nbytes(*tensors) -> int:
+    """Bytes of tensors (tuples flattened), each counted once."""
+    total = 0
+    for t in tensors:
+        total += (nbytes(*t) if isinstance(t, tuple)
+                  else t.numel() * t.element_size())
+    return total
+
+
+def bound(moved_bytes: int, ops: float) -> tuple[float, str]:
+    """(least time in ms, what bounds it): the bytes a kernel must move
+    over the HBM rate against its operations over the peak rate."""
+    t_bytes = moved_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def check_kernels(torch, cases, phase: str, shape_note: str) -> dict:
+    """cases: name -> (kernel fn, plain fn, input tensors, op count).
+    Each kernel must equal its plain version exactly (integers:
+    tolerance 0); both are timed."""
+    results = {}
+    for name, (kern, plain, inputs, ops) in cases.items():
+        got = kern()
+        err = max_err(torch, got, plain())
+        ms = cuda_ms(torch, kern, 10)
+        plain_ms = cuda_ms(torch, plain, 3)
+        bound_ms, bound_by = bound(nbytes(*inputs) + nbytes(got), ops)
+        log(f"[{phase}] {name:13s} max_abs_err {err} (tolerance 0: exact "
+            f"integers)  kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  bound "
+            f"{bound_ms * 1e3:.2f} us ({bound_by})  ({shape_note})")
+        if err != 0:
+            raise AssertionError(f"{name}: kernel != plain (max err {err})")
+        # no single PyTorch call computes any of these functions
+        results[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                         "bound_ms": bound_ms, "bound_by": bound_by,
+                         "library_ms": None}
+    return results
+
+
 def group_inputs(np, cm, fmt, data: bytes, start: int, bs: int):
     """The pipeline's inputs for the first group of the block at ``start``
     (same construction as ops/pipeline.py dispatch_block)."""
@@ -119,6 +184,41 @@ def group_inputs(np, cm, fmt, data: bytes, start: int, bs: int):
     return bufs, cand, lim, hb, cut_gram, CH - fmt.BLOCK_END_NO_MATCH
 
 
+def encode_run(torch, _cuda, native, pipeline, name, data, expect, **kw):
+    """One device encode with the launch counters set to 0 just before it:
+    the stream must equal native.compress and decode back, and the counts
+    must equal ``expect``.  Returns (launch counts, stats)."""
+    native_kw = {k: v for k, v in kw.items() if k in ("legacy", "block_size")}
+    t = time.perf_counter()
+    want = native.compress(data, 9, **native_kw)
+    native_s = time.perf_counter() - t
+    stats: dict = {}
+    torch.cuda.synchronize()
+    _cuda.reset_counts()
+    t = time.perf_counter()
+    got = pipeline.compress(data, 9, device="cuda", stats=stats, **kw)
+    wall = time.perf_counter() - t
+    counts = dict(_cuda.LAUNCHES)
+    if got != want:
+        raise AssertionError(f"{name}: stream != native.compress(data, 9)"
+                             f" ({len(got)} vs {len(want)} bytes)")
+    if native.decompress(got) != data:
+        raise AssertionError(f"{name}: native.decompress round trip")
+    if counts != expect:
+        raise AssertionError(f"{name}: launches {counts} != {expect}")
+    log(f"    {name}: {len(data)} B -> {len(got)} B, equal to native; "
+        f"{len(data) / wall / 1e6:.3f} MB/s e2e ({wall:.3f} s); device span "
+        f"of the match calls {stats['device_match_ms']:.3f} ms; refine "
+        f"{stats['n_refine_positions']}/{stats['n_positions']} positions; "
+        f"launches {counts}")
+    log(f"    native.compress {len(data) / native_s / 1e6:.3f} MB/s "
+        f"({native_s:.3f} s); host clock: dispatch "
+        f"{stats['device_dispatch']:.3f} s, collect "
+        f"{stats['device_sync']:.3f} s, refine+DP+emit tail "
+        f"{stats['host_refine_dp_emit']:.3f} s")
+    return counts, stats
+
+
 def main() -> int:
     import torch
 
@@ -136,11 +236,13 @@ def main() -> int:
 
     import bench
     import smallz4_tpu_torch
-    from smallz4_tpu import format as fmt
-    from smallz4_tpu import native
+    from smallz4_tpu_torch import format as fmt
+    from smallz4_tpu_torch import native
     from smallz4_tpu_torch.ops import _cuda, sortnet
     from smallz4_tpu_torch.ops import chunkmatch as cm
+    from smallz4_tpu_torch.ops import pallas_kernels as pk
     from smallz4_tpu_torch.ops import pipeline
+    from smallz4_tpu_torch.ops import sortmatch as sm
 
     # -- phase 0: card ---------------------------------------------------
     card = card_line()
@@ -159,11 +261,12 @@ def main() -> int:
         if "registers" in line or "spill" in line:
             log("    ptxas:", line.strip())
     t = time.perf_counter()
-    if native._load() is None:  # builds native/libtlz4.so if missing
-        raise RuntimeError("native runtime missing and not buildable")
-    log(f"[1] native runtime ready in {time.perf_counter() - t:.3f} s")
+    lib_path = native.build()
+    native._load()
+    log(f"[1] native runtime {lib_path.relative_to(ROOT)} ready in "
+        f"{time.perf_counter() - t:.3f} s")
 
-    # -- phase 2: kernels against their plain versions ---------------------
+    # -- phase 2: chunk-engine kernels against their plain versions --------
     real = real_corpus()
     CH, G = cm.CHUNK, cm.GROUP
     start = G * CH  # block 1: live boundary cut and a history halo
@@ -187,31 +290,31 @@ def main() -> int:
     claims = cm._claims(s_key, s_pay, cp, torch.zeros_like(cand_d), cand_d,
                         lim_d, CH)
     packed = cm.pack_results(*claims, chunk=CH)
+    n_rec = G * CH
+    # operation counts: compares of n log2 n sorting (6 key words), of a
+    # merge (6 words per output), ~15 word operations per probe, a few per
+    # record for compaction and packing
     cases = {
         "sort_records": (
             lambda: sortnet.sort_records(recs, n_keys=6, unique=True),
-            lambda: sortnet.sort_records_plain(recs, n_keys=6, unique=True)),
+            lambda: sortnet.sort_records_plain(recs, n_keys=6, unique=True),
+            (recs,), n_rec * 16 * 6),
         "merge_sorted": (
             lambda: sortnet.merge_sorted(x, n_keys=6, unique=True),
-            lambda: sortnet.merge_sorted_plain(x, n_keys=6, unique=True)),
+            lambda: sortnet.merge_sorted_plain(x, n_keys=6, unique=True),
+            (x,), 2 * n_rec * 6),
         "probe": (lambda: cm.probe(merged, cg, cp, lim_d, CH),
-                  lambda: cm.probe_plain(merged, cg, cp, lim_d, CH)),
+                  lambda: cm.probe_plain(merged, cg, cp, lim_d, CH),
+                  (merged, cg, cp, lim_d),
+                  2 * n_rec * 2 * len(cm.PROBES) * 15),
         "compact": (lambda: cm.compact(p_key, p_pay, CH),
-                    lambda: cm.compact_plain(p_key, p_pay, CH)),
+                    lambda: cm.compact_plain(p_key, p_pay, CH),
+                    (p_key, p_pay), 2 * n_rec * 3),
         "pack": (lambda: cm.pack_results(*claims, chunk=CH),
-                 lambda: cm.pack_results_plain(*claims, chunk=CH)),
+                 lambda: cm.pack_results_plain(*claims, chunk=CH),
+                 tuple(claims), n_rec * 10),
     }
-    results = {}
-    for name, (kern, plain) in cases.items():
-        err = max_err(torch, kern(), plain())
-        ms = cuda_ms(torch, kern, 10)
-        plain_ms = cuda_ms(torch, plain, 3)
-        log(f"[2] {name:13s} max_abs_err {err} (tolerance 0: exact "
-            f"integers)  kernel {ms:.4f} ms  "
-            f"plain {plain_ms:.4f} ms  ({G} x {CH} positions)")
-        if err != 0:
-            raise AssertionError(f"{name}: kernel != plain (max err {err})")
-        results[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+    results = check_kernels(torch, cases, "2", f"{G} x {CH} positions")
     n_heads = packed[2]
     log(f"[2] head counts: min {int(n_heads.min())} max {int(n_heads.max())}"
         f" mean {float(n_heads.float().mean()):.1f} (HEAD_CAP {cm.HEAD_CAP})")
@@ -225,63 +328,112 @@ def main() -> int:
         f"{group_ms:.3f} ms device = "
         f"{G * CH / group_ms / 1e3:.2f} MB/s device-only match rate")
 
-    # -- phase 3: end to end ----------------------------------------------
-    def expected(data, legacy, block):
+    # -- phase 2b: sort-engine kernels against their plain versions --------
+    # 7 segments of the block at 1 MiB (boundary cut in row 0) + 1 padding
+    s_start, s_bs = 1 << 20, 7 * pipeline.SEG
+    varr = np.frombuffer(real, np.uint8)
+    seg_group = list(range(s_start, s_start + s_bs, pipeline.SEG))
+    arrays = pipeline.segment_group(varr, s_start, s_start + s_bs, seg_group,
+                                    False, True)
+    sbufs, sv, ev, scut, sfin = (torch.from_numpy(a).to(dev) for a in arrays)
+    B, n = pipeline.SEG_BATCH, sm.N_ENTRIES
+    rec, _ = sm.segment_records(sbufs, sv, ev, scut)
+    srec = sortnet.sort_records(rec, n_keys=2)
+    lens0, dists0, _ = sm.neighbor_scan(srec)
+    rl_in = sbufs[:, :n].contiguous()
+    scases = {
+        "sort_records": (lambda: sortnet.sort_records(rec, n_keys=2),
+                         lambda: sortnet.sort_records_plain(rec, n_keys=2),
+                         (rec,), B * n * 17 * 3),
+        "scan": (lambda: sm.neighbor_scan(srec),
+                 lambda: sm.neighbor_scan_plain(srec),
+                 (srec[:, 0], srec[:, 2:]), B * n * 2 * len(sm.PROBES) * 10),
+        "chain": (lambda: sm.chain(lens0, dists0, 14),
+                  lambda: sm.chain_plain(lens0, dists0, 14),
+                  (lens0, dists0), B * n * 14 * 6),
+        "run_lengths": (lambda: pk.run_lengths(rl_in),
+                        lambda: pk.run_lengths_plain(rl_in),
+                        (rl_in,), B * n * 15),
+    }
+    sresults = check_kernels(torch, scases, "2b",
+                             f"{B} x {n} records, one dispatch")
+    results["sort_records"]["sort_engine"] = sresults.pop("sort_records")
+    results.update(sresults)
+
+    def dispatch():
+        return sm.match_segments(sbufs, sv, ev, scut, sfin)
+
+    disp_ms = cuda_ms(torch, dispatch, 5)
+    searched = int(sum(min(pipeline.SEG, s_start + s_bs - s0)
+                       for s0 in seg_group))
+    log(f"[2b] match_segments, one dispatch ({B} rows, {searched} searched "
+        f"positions): {disp_ms:.3f} ms device = "
+        f"{searched / disp_ms / 1e3:.2f} MB/s device-only match rate")
+
+    # -- phase 3: chunk engine end to end ---------------------------------
+    def chunk_expected(data, block):
         groups = sum(-(-(min(s + block, len(data)) - s) // (G * CH))
                      for s in range(0, len(data), block))
         blocks = -(-len(data) // block)
-        return {"sort_records": groups + blocks, "merge_sorted": groups,
-                "probe": groups, "compact": groups, "pack": groups}
+        return {k: 0 for k in _cuda.LAUNCHES} | {
+            "sort_records": groups + blocks, "merge_sorted": groups,
+            "probe": groups, "compact": groups, "pack": groups}
 
-    runs = [("realcorpus", real, False),
-            ("make_corpus_8MiB", bench.make_corpus(8 << 20), False),
-            ("realcorpus_legacy", real, True)]
     launches = None
-    for name, data, legacy in runs:
+    for name, data, legacy in (
+            ("realcorpus", real, False),
+            ("make_corpus_8MiB", bench.make_corpus(8 << 20), False),
+            ("realcorpus_legacy", real, True)):
         block = fmt.MAX_BLOCK_SIZE_LEGACY if legacy else fmt.MAX_BLOCK_SIZE
-        t = time.perf_counter()
-        want = native.compress(data, 9, legacy=legacy)
-        native_s = time.perf_counter() - t
-        stats: dict = {}
-        _cuda.reset_counts()
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        got = pipeline.compress(data, 9, legacy=legacy, device=dev,
-                                stats=stats)
-        wall = time.perf_counter() - t
-        counts = dict(_cuda.LAUNCHES)
-        if launches is None:
-            launches = counts
-        if got != want:
-            raise AssertionError(f"{name}: stream != native.compress(data, 9)"
-                                 f" ({len(got)} vs {len(want)} bytes)")
-        if native.decompress(got) != data:
-            raise AssertionError(f"{name}: native.decompress round trip")
-        exp = expected(data, legacy, block)
-        if counts != exp:
-            raise AssertionError(f"{name}: launches {counts} != {exp}")
-        log(f"[3] {name}: {len(data)} B -> {len(got)} B, equal to native; "
-            f"{len(data) / wall / 1e6:.3f} MB/s e2e ({wall:.3f} s); device "
-            f"span of the match calls {stats['device_match_ms']:.3f} ms; "
-            f"refine {stats['n_refine_positions']}/{stats['n_positions']} "
-            f"positions; launches {counts}")
-        log(f"    native.compress {len(data) / native_s / 1e6:.3f} MB/s "
-            f"({native_s:.3f} s); host clock: dispatch "
-            f"{stats['device_dispatch']:.3f} s, collect "
-            f"{stats['device_sync']:.3f} s, refine+DP+emit tail "
-            f"{stats['host_refine_dp_emit']:.3f} s")
-    public = smallz4_tpu_torch.compress(real, 9, engine="device", device=dev)
+        log(f"[3] chunk engine, {name}")
+        counts, _ = encode_run(torch, _cuda, native, pipeline, name, data,
+                               chunk_expected(data, block), legacy=legacy)
+        launches = launches or counts
+    public = smallz4_tpu_torch.compress(real, 9)  # the default: the card
     if public != native.compress(real, 9):
         raise AssertionError("public API stream != native.compress")
     raw = pipeline.compress(real, 9, parity=False, device=dev)
     if native.decompress(raw) != real:
         raise AssertionError("parity=False stream does not round-trip")
-    log(f"[3] public API stream equal to native; parity=False: {len(raw)} B,"
-        f" round-trips ({len(raw) / len(public) - 1:+.4%} vs parity)")
+    log(f"[3] public API (default engine and device) stream equal to native;"
+        f" parity=False: {len(raw)} B, round-trips "
+        f"({len(raw) / len(public) - 1:+.4%} vs parity)")
 
+    # -- phase 3b: sort engine end to end ---------------------------------
+    def sort_expected(data, block):
+        segs = [-(-(min(s + block, len(data)) - s) // pipeline.SEG)
+                for s in range(0, len(data), block)]
+        n_disp = sum(-(-k // pipeline.SEG_BATCH) for k in segs)
+        return {k: 0 for k in _cuda.LAUNCHES} | {k: n_disp
+                                                  for k in SORT_KERNELS}
+
+    sort_launches = None
+    for name, block, kernel in (("realcorpus_1MiB", 1 << 20, None),
+                                ("realcorpus_4MiB_sort", fmt.MAX_BLOCK_SIZE,
+                                 "sort")):
+        exp = sort_expected(real, block)
+        log(f"[3b] sort engine, {name} ({exp['scan']} dispatches)")
+        counts, _ = encode_run(torch, _cuda, native, pipeline, name, real,
+                               exp, block_size=block, kernel=kernel)
+        sort_launches = sort_launches or counts
+    raw = pipeline.compress(real, 9, block_size=1 << 20, parity=False,
+                            device=dev)
+    if native.decompress(raw) != real:
+        raise AssertionError("sort-engine parity=False stream does not "
+                             "round-trip")
+    log(f"[3b] sort engine parity=False (1 MiB blocks): {len(raw)} B, "
+        f"round-trips")
+
+    results["sort_records"]["sort_engine"]["launches"] = \
+        sort_launches["sort_records"]
     kernels = [{"name": name, "route": "cuda", "source": src,
-                "replaces": rep, "launches": launches[name],
+                "replaces": rep,
+                "launches": (launches if name in CHUNK_KERNELS
+                             else sort_launches)[name],
                 **results[name]} for name, src, rep in KERNELS]
+    for k in kernels:
+        if k["launches"] < 1:
+            raise AssertionError(f"{k['name']} never launched on its path")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -1,16 +1,15 @@
 """smallz4_tpu_torch — the PyTorch + CUDA port of smallz4_tpu.
 
-The level-9 encode runs its match search on a torch device (hand-written
-CUDA kernels for Hopper on a GPU, their plain PyTorch versions on the CPU)
-and shares the JAX-free host layer of smallz4_tpu (format, the C++ native
-runtime, the host thread pool).  Streams are bit-identical to
-``smallz4 -9``.
+The level-9 encode runs its match search on a torch device: hand-written
+CUDA kernels for Hopper on a GPU, their plain PyTorch versions on the CPU.
+The host side (format, the C++ runtime built from ``native/``, the worker
+pool) is the port's own copy.  Streams are bit-identical to ``smallz4 -9``.
 
-    compress(data, level=9, legacy=False, dictionary=None,
-             engine="device", device="cuda") -> bytes
+    compress(data, level=9, legacy=False, dictionary=None, block_size=None,
+             engine="auto", device="cuda", kernel=None) -> bytes
     decompress(data, dictionary=None) -> bytes
 """
-from smallz4_tpu.format import VERSION, FormatError  # noqa: F401
+from .format import VERSION, FormatError  # noqa: F401
 
 
 def get_version() -> str:
@@ -19,15 +18,21 @@ def get_version() -> str:
 
 
 def compress(data, level: int = 9, legacy: bool = False, dictionary=None,
-             block_size=None, engine: str = "auto", device="cuda") -> bytes:
-    """Compress to a complete LZ4 frame.  ``engine``: 'auto' | 'native' |
-    'device'; ``device`` is the torch device of the 'device' engine."""
+             block_size=None, engine: str = "auto", device="cuda",
+             kernel: str | None = None) -> bytes:
+    """Compress to a complete LZ4 frame.  ``engine``: 'auto' (= 'device')
+    | 'device' | 'native'.  The device engine runs on ``device`` (a CUDA
+    device by default; without one it raises, pass device='cpu' for the
+    plain versions) with search ``kernel`` 'chunk' or 'sort' (None reads
+    $SMALLZ4_TPU_KERNEL; see ops.pipeline.compress)."""
     from .codec import compress as _compress
     return _compress(data, level=level, legacy=legacy, dictionary=dictionary,
-                     block_size=block_size, engine=engine, device=device)
+                     block_size=block_size, engine=engine, device=device,
+                     kernel=kernel)
 
 
 def decompress(data, dictionary=None, engine: str = "auto") -> bytes:
-    """Decompress a complete LZ4 frame (modern or legacy)."""
+    """Decompress a complete LZ4 frame (modern or legacy) with the native
+    decoder; the device decode is not ported yet."""
     from .codec import decompress as _decompress
     return _decompress(data, dictionary=dictionary, engine=engine)

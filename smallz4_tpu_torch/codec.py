@@ -1,15 +1,16 @@
 """Engine dispatch for the public compress/decompress API of the port.
 
 Engines:
-  'device' — the chunk-engine pipeline (ops.pipeline) on an explicit
-             torch.device: a CUDA device runs the hand-written kernels, the
-             CPU their plain PyTorch versions.
-  'native' — the shared C++ host runtime (smallz4_tpu.native).
-  'auto'   — 'native', as the reference's 'auto' never picks the device.
+  'device' — the device pipeline (ops.pipeline) on a torch.device: a CUDA
+             device runs the hand-written kernels, the CPU their plain
+             PyTorch versions.
+  'native' — the C++ host runtime (smallz4_tpu_torch.native).
+  'auto'   — 'device' for compress; 'native' for decompress, whose device
+             decode is not ported yet (ROADMAP.md, queue 1: decode).
 """
 from __future__ import annotations
 
-from smallz4_tpu import native
+from . import native
 
 ENGINES = ("auto", "native", "device")
 
@@ -21,18 +22,20 @@ def _check(engine: str) -> None:
 
 
 def compress(data, level=9, legacy=False, dictionary=None, block_size=None,
-             engine="auto", device="cuda") -> bytes:
+             engine="auto", device="cuda", kernel=None) -> bytes:
     _check(engine)
-    if engine == "device":
-        from .ops import pipeline
-        return pipeline.compress(data, level=level, legacy=legacy,
-                                 dictionary=dictionary, block_size=block_size,
-                                 device=device)
-    return native.compress(data, level=level, legacy=legacy,
-                           dictionary=dictionary, block_size=block_size)
+    if engine == "native":
+        return native.compress(data, level=level, legacy=legacy,
+                               dictionary=dictionary, block_size=block_size)
+    from .ops import pipeline
+    return pipeline.compress(data, level=level, legacy=legacy,
+                             dictionary=dictionary, block_size=block_size,
+                             device=device, kernel=kernel)
 
 
 def decompress(data, dictionary=None, engine="auto") -> bytes:
+    """Native decode for 'auto' and 'native'; 'device' raises until the
+    decode slice is ported."""
     _check(engine)
     if engine == "device":
         raise NotImplementedError(

@@ -1,0 +1,65 @@
+"""LZ4 frame and block format: the constants and headers the port writes.
+
+The port's own copy of what it uses from ``smallz4_tpu/format.py`` (the
+reference's format layer, parity notes there): block-end rules, window and
+block sizes, the frame header, block size words and the end mark.  Pure
+Python; no kernels.
+"""
+from __future__ import annotations
+
+import struct
+
+MIN_MATCH = 4                    # minimum match length
+BLOCK_END_NO_MATCH = 12          # no match starts within 12 B of block end
+BLOCK_END_LITERALS = 5           # last 5 bytes of a block are always literals
+
+MAX_DISTANCE = 65535             # match window (u16 offsets)
+MAX_CHAIN_LENGTH = MAX_DISTANCE  # "unlimited" chain steps => optimal parsing
+MAX_SAME_LETTER = 19 + 255 * 256  # run-shortcut threshold (smallz4.h:118)
+
+MAX_BLOCK_SIZE_ID = 7
+MAX_BLOCK_SIZE = 4 * 1024 * 1024
+MAX_BLOCK_SIZE_LEGACY = 8 * 1024 * 1024
+
+VERSION = "1.5"                  # behavioral parity version (smallz4.h:67-70)
+
+MAGIC_MODERN_BYTES = struct.pack("<I", 0x184D2204)  # 04 22 4D 18
+MAGIC_LEGACY_BYTES = struct.pack("<I", 0x184C2102)  # 02 21 4C 18
+# magic + FLG (version 1, dependent blocks, no checksums) + BD (4 MB max
+# block) + the header checksum byte of that descriptor (smallz4.h:486-495)
+MODERN_FRAME_HEADER = MAGIC_MODERN_BYTES + bytes(
+    (1 << 6, MAX_BLOCK_SIZE_ID << 4, 0xDF))
+
+STORED_FLAG = 0x80000000         # high bit of the block size word => stored
+END_MARK = struct.pack("<I", 0)
+
+
+class FormatError(ValueError):
+    """Corrupt or unsupported stream."""
+
+
+def level_to_max_chain(level: int) -> int:
+    """CLI level -> match-chain step budget: 0..8 as given, 9 unlimited."""
+    if not 0 <= level <= 9:
+        raise ValueError(f"compression level must be 0..9, got {level}")
+    return MAX_CHAIN_LENGTH if level == 9 else level
+
+
+def build_frame_header(legacy: bool = False) -> bytes:
+    """The frame header the reference writes (no checksums)."""
+    return MAGIC_LEGACY_BYTES if legacy else MODERN_FRAME_HEADER
+
+
+def build_block_header(payload_size: int, stored: bool,
+                       legacy: bool = False) -> bytes:
+    """u32 LE block size word; modern stored blocks set the high bit.
+    Legacy blocks are always 'compressed'."""
+    if payload_size >= STORED_FLAG:
+        raise ValueError("block payload too large")
+    tag = payload_size | (STORED_FLAG if (stored and not legacy) else 0)
+    return struct.pack("<I", tag)
+
+
+def build_end_mark(legacy: bool = False) -> bytes:
+    """Modern frames end with a zero-size block; legacy frames just stop."""
+    return b"" if legacy else END_MARK

@@ -1,11 +1,13 @@
 """Build, binding and launch counters for the hand-written CUDA kernels.
 
 The sources in ``smallz4_tpu_torch/csrc/*.cu`` expose a plain C interface.
-At first use they are compiled with ``nvcc`` for ``sm_90a`` into
-``smallz4_tpu_torch/build/libs4kernels.so`` (rebuilt whenever a source or
-flag changes: a stamp file beside it holds their hash) and loaded with
-``ctypes``.  Every entry point returns ``cudaGetLastError()`` after its
-launches; a non-zero code raises here.
+At first use each is compiled with ``nvcc`` for ``sm_90a`` (one process per
+source, all started together) and linked into
+``smallz4_tpu_torch/build/libs4kernels.so``, which is rebuilt whenever a
+source or flag changes (a stamp file beside it holds their hash) and loaded
+with ``ctypes``.  A file lock makes concurrent processes build it once.
+Every entry point returns ``cudaGetLastError()`` after its launches; a
+non-zero code raises here.
 
 ``LAUNCHES`` counts, per kernel wrapper, the calls that went to the card.
 Nothing is imported or built when this module is imported.
@@ -13,6 +15,7 @@ Nothing is imported or built when this module is imported.
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import pathlib
@@ -27,11 +30,11 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "build"
 LIB_NAME = "libs4kernels.so"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 #: wrapper name -> number of launches on a CUDA device
 LAUNCHES = {"sort_records": 0, "merge_sorted": 0, "probe": 0, "compact": 0,
-            "pack": 0}
+            "pack": 0, "scan": 0, "chain": 0, "run_lengths": 0}
 
 _lock = threading.Lock()
 _lib = None
@@ -51,6 +54,12 @@ _SIGNATURES = {
     # lens, dists, conv, lk, bits, packed, count, cbits, kbits, B, chunk,
     # stream
     "s4_pack": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P],
+    # rec, olen, odist, oflag, B, n, stream
+    "s4_scan": [_P, _P, _P, _P, _I, _I, _P],
+    # lens, dists, out, tmp, B, n, steps, stream
+    "s4_chain": [_P, _P, _P, _P, _I, _I, _I, _P],
+    # x, out, scratch, B, n, stream
+    "s4_run_lengths": [_P, _P, _P, _I, _I, _P],
 }
 
 
@@ -83,24 +92,43 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
 
+def _run_all(cmds: list[list[str]]) -> str:
+    """Run the commands in parallel; raise on the first failure; return
+    their joined output."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    outs = [p.communicate()[0] for p in procs]
+    for cmd, p, out in zip(cmds, procs, outs):
+        if p.returncode != 0:
+            raise RuntimeError(f"{' '.join(cmd)} failed ({p.returncode}):\n"
+                               f"{out}")
+    return "".join(outs)
+
+
 def build() -> tuple[pathlib.Path, str]:
     """Compile the kernels unless the library matches the current sources;
     returns (library path, compiler log of this build or '')."""
     lib_path = BUILD_DIR / LIB_NAME
     stamp = BUILD_DIR / (LIB_NAME + ".sha256")
     digest = _digest()
-    if lib_path.is_file() and stamp.is_file() and stamp.read_text() == digest:
-        return lib_path, ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = BUILD_DIR / f".{LIB_NAME}.{os.getpid()}"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, _sources())]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({res.returncode}):\n{res.stdout}\n{res.stderr}")
-    os.replace(tmp, lib_path)  # atomic: a concurrent loader sees old or new
-    stamp.write_text(digest)
-    log = res.stdout + res.stderr
+    with open(BUILD_DIR / (LIB_NAME + ".lock"), "w") as lock_file:
+        fcntl.flock(lock_file, fcntl.LOCK_EX)  # released when the file closes
+        if (lib_path.is_file() and stamp.is_file()
+                and stamp.read_text() == digest):
+            return lib_path, ""
+        nvcc = _nvcc()
+        tag = f"{os.getpid()}"
+        objs = [BUILD_DIR / f".{src.stem}.{tag}.o" for src in _sources()]
+        log = _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+                        for src, obj in zip(_sources(), objs)])
+        tmp = BUILD_DIR / f".{LIB_NAME}.{tag}"
+        log += _run_all([[nvcc, "-shared", "-o", str(tmp), *map(str, objs)]])
+        for obj in objs:
+            obj.unlink()
+        os.replace(tmp, lib_path)  # atomic: a loader sees old or new
+        stamp.write_text(digest)
     (BUILD_DIR / "nvcc.log").write_text(log)
     return lib_path, log
 

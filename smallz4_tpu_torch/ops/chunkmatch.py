@@ -26,7 +26,7 @@ import os as _os
 import numpy as np
 import torch
 
-from smallz4_tpu import format as fmt
+from .. import format as fmt
 
 from . import _cuda, sortnet
 

@@ -1,39 +1,55 @@
-"""The 'device' engine: the chunk-engine encode on one torch device.
+"""The 'device' engine: the level-9 encode on one torch device.
 
-Port of ``smallz4_tpu/ops/pipeline.py`` (``compress`` and the chunk path
-``_compress_chunked``).  The device runs the match search
-(``ops.chunkmatch.match_chunks``, one call per group of GROUP chunks); the
-host runtime (``smallz4_tpu.native``) unpacks the claims, refines
-uncertified positions, runs the optimal-parse DP, fixes distances and emits,
-in a worker pool.  With ``parity=True`` the stream is bit-identical to
-``native.compress(data, 9)`` and ``smallz4 -9``.
+Port of ``smallz4_tpu/ops/pipeline.py`` ``compress`` and its two Pallas
+search paths: the chunk engine (``_compress_chunked``: one
+``ops.chunkmatch.match_chunks`` call per group of GROUP chunks) and the sort
+engine (``_process_block_window``: one ``ops.sortmatch.match_segments``
+call per dispatch of SEG_BATCH segments).  The device runs the match
+search; the host runtime (``smallz4_tpu_torch.native``) refines uncertified
+positions, runs the optimal-parse DP and emits, in a worker pool.  With
+``parity=True`` the stream is bit-identical to ``native.compress(data, 9)``
+and ``smallz4 -9``.
 
 Every torch call stays on the calling thread and on the device's current
 stream: inputs go up as host-to-device copies, results come back as
 non-blocking copies into pinned host buffers, and one CUDA event per group
-marks them ready.  Pool threads touch only numpy arrays and the native
-runtime.
+or dispatch marks them ready.  Pool threads touch only numpy arrays and the
+native runtime.
 """
 from __future__ import annotations
 
 import os
 import threading
 import time
+import warnings
 
 import numpy as np
 import torch
 
-from smallz4_tpu import format as fmt
-from smallz4_tpu import native
-from smallz4_tpu.parallel import host as host_par
-
+from .. import format as fmt
+from .. import native
+from ..parallel import host as host_par
 from . import chunkmatch as cm
+from . import sortmatch as sm
 
 HALO = fmt.MAX_DISTANCE  # 64 KB - 1: the dependent-block history window
+
+# sort-engine segment geometry (smallz4_tpu/ops/match_finder.py)
+SEG = sm.SEG                  # positions searched per segment
+TAIL = 2048                   # segment read-ahead (match headroom)
+SEG_BUF = HALO + SEG + TAIL   # segment buffer bytes
+SEG_BATCH = 8                 # segments per match_segments dispatch
+WINDOW = 8                    # blocks in flight
 
 
 def _blocks(n: int, block_size: int):
     return [(i, min(i + block_size, n)) for i in range(0, n, block_size)]
+
+
+def _block_cut(start: int, legacy: bool) -> bool:
+    """Whether the block at ``start`` takes the reference's boundary chain
+    cut: modern frames, once a whole window of history precedes it."""
+    return not legacy and start >= fmt.MAX_DISTANCE + fmt.BLOCK_END_NO_MATCH
 
 
 def _deep_run_rule(ctxb, base_r, bs, lens, dists, conv, lk):
@@ -93,15 +109,64 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
+def _device_pair(on_card: bool, dev: torch.device):
+    """(to_dev, to_host): numpy -> device tensor through pinned memory, and
+    device tensor -> pinned host tensor by a non-blocking copy.  On the CPU
+    both are the identity."""
+    def to_dev(a: np.ndarray) -> torch.Tensor:
+        t = torch.from_numpy(a)
+        return t.pin_memory().to(dev, non_blocking=True) if on_card else t
+
+    def to_host(t: torch.Tensor) -> torch.Tensor:
+        if not on_card:
+            return t
+        h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+        h.copy_(t.contiguous(), non_blocking=True)
+        return h
+
+    return to_dev, to_host
+
+
+def _choose_kernel(kernel: str | None, block_size: int) -> str:
+    """The search engine: ``kernel`` or, if None, $SMALLZ4_TPU_KERNEL, or
+    'chunk'.  'chunk' needs block_size % (GROUP*CHUNK) == 0 and falls back
+    to 'sort' otherwise (with a warning when the kernel was asked for).
+    The reference falls back to 'walk' off a TPU because its Pallas kernels
+    need one; the port's plain versions run anywhere, so it falls back to
+    'sort' on the CPU as on a GPU."""
+    if kernel is None:
+        kernel = os.environ.get("SMALLZ4_TPU_KERNEL", "")
+    explicit = bool(kernel)
+    kernel = kernel or "chunk"
+    if kernel == "chunk" and block_size % (cm.GROUP * cm.CHUNK) != 0:
+        if explicit:
+            warnings.warn(
+                f"kernel='chunk' requires block_size % "
+                f"{cm.GROUP * cm.CHUNK} == 0 (got {block_size}); falling "
+                f"back to kernel='sort'", stacklevel=3)
+        kernel = "sort"
+    if kernel == "walk":
+        raise NotImplementedError(
+            "kernel='walk' is not ported yet (ROADMAP.md, queue 1, item 5: "
+            "the walk engine)")
+    if kernel not in ("chunk", "sort"):
+        raise ValueError(f"unknown device kernel {kernel!r}")
+    return kernel
+
+
 def compress(data, level: int = 9, legacy: bool = False, dictionary=None,
              block_size: int | None = None, parity: bool = True,
-             device="cuda", stats: dict | None = None) -> bytes:
+             device="cuda", stats: dict | None = None,
+             kernel: str | None = None) -> bytes:
     """Compress via the device match search on ``device`` (a CUDA device
-    runs the hand-written kernels, the CPU their plain versions).  Levels
-    other than 9 and small-block parity streams go to the native encoder,
-    as in the reference.  ``stats``, if given, receives per-stage wall
-    times and counters (``n_*``), and on a CUDA device the device time of
-    the match search (``device_match_ms``)."""
+    runs the hand-written kernels, the CPU their plain versions; a CUDA
+    device without CUDA raises).  Levels other than 9 and small-block
+    parity streams go to the native encoder, as in the reference.
+    ``kernel``: the search engine, 'chunk' (default) or 'sort'; None reads
+    $SMALLZ4_TPU_KERNEL; see ``_choose_kernel`` for the fallback.
+    ``stats``, if given, receives per-stage wall times and counters
+    (``n_*``), and on a CUDA device the device time of the match search
+    (``device_match_ms``)."""
     dev = resolve_device(device)
     data = bytes(data)
     if legacy and dictionary:
@@ -125,21 +190,16 @@ def compress(data, level: int = 9, legacy: bool = False, dictionary=None,
             and block_size < fmt.MAX_DISTANCE + fmt.BLOCK_END_NO_MATCH):
         return native.compress(data, level, legacy=legacy,
                                dictionary=dictionary, block_size=block_size)
-    if block_size % (cm.GROUP * cm.CHUNK) != 0:
-        # the reference falls back to its 'sort' / 'walk' kernels here
-        raise NotImplementedError(
-            f"block_size % {cm.GROUP * cm.CHUNK} != 0 needs the 'sort' "
-            f"search, which is not ported yet (ROADMAP.md, queue 1: the "
-            f"sort engine)")
+    kernel = _choose_kernel(kernel, block_size)
 
     dict_tail = b""
     if dictionary and not legacy:
         dict_tail = bytes(dictionary)[-fmt.MAX_DISTANCE:]
     out = bytearray(fmt.build_frame_header(legacy))
     stages: dict = {}
-    _compress_chunked(out, data, dict_tail + data, len(dict_tail),
-                      _blocks(len(data), block_size), legacy, parity, stages,
-                      dev)
+    run = _compress_chunked if kernel == "chunk" else _compress_sorted
+    run(out, data, dict_tail + data, len(dict_tail),
+        _blocks(len(data), block_size), legacy, parity, stages, dev)
     out += fmt.build_end_mark(legacy)
     if stats is not None:
         stats.update(stages)
@@ -170,16 +230,7 @@ def _compress_chunked(out, data, vdata, d, blocks, legacy, parity, stages,
     def add(key, v):
         stages[key] = stages.get(key, 0) + v
 
-    def to_dev(a: np.ndarray) -> torch.Tensor:
-        t = torch.from_numpy(a)
-        return t.pin_memory().to(dev, non_blocking=True) if on_card else t
-
-    def to_host(t: torch.Tensor) -> torch.Tensor:
-        if not on_card:
-            return t
-        h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-        h.copy_(t.contiguous(), non_blocking=True)
-        return h
+    to_dev, to_host = _device_pair(on_card, dev)
 
     def block_halo(start):
         """Sorted halo records for the block at ``start``."""
@@ -201,7 +252,7 @@ def _compress_chunked(out, data, vdata, d, blocks, legacy, parity, stages,
         """Queue every group of one block on the device."""
         bs = end - start
         n_groups = -(-bs // (G * CH))
-        block_cut = (not legacy) and start >= fmt.MAX_DISTANCE + fmt.BLOCK_END_NO_MATCH
+        block_cut = _block_cut(start, legacy)
         halo = block_halo(start)
         entries = []
         for gi in range(n_groups):
@@ -308,7 +359,7 @@ def _compress_chunked(out, data, vdata, d, blocks, legacy, parity, stages,
         block landed on)."""
         bs = end - start
         vstart, vend = start + d, end + d
-        block_cut = (not legacy) and start >= fmt.MAX_DISTANCE + fmt.BLOCK_END_NO_MATCH
+        block_cut = _block_cut(start, legacy)
         if fetched is None:
             lens = np.ones(bs, np.int32)
             dists = np.zeros(bs, np.int32)
@@ -369,8 +420,7 @@ def _compress_chunked(out, data, vdata, d, blocks, legacy, parity, stages,
             return payload, False
         return data[start:end], True
 
-    # in-flight blocks: bounds device and host result memory
-    WINDOW = 8
+    # in-flight blocks (WINDOW) bound device and host result memory
     n_cores = min(32, os.cpu_count() or 1)
     pending = []  # (bi, start, end, entries)
     jobs = {}     # bi -> future of (payload, stored)
@@ -438,6 +488,142 @@ def _compress_chunked(out, data, vdata, d, blocks, legacy, parity, stages,
         out += fmt.build_block_header(len(payload), stored, legacy)
         out += payload
     add("host_refine_dp_emit", time.perf_counter() - t0)
+
+
+def segment_group(varr: np.ndarray, vstart: int, vend: int, group,
+                  legacy: bool, block_cut: bool):
+    """Inputs of one ``match_segments`` dispatch: the segments starting at
+    the virtual-stream offsets ``group`` (at most SEG_BATCH) of the block
+    [vstart, vend) of ``varr``.  Each row is [halo | SEG | read-ahead]
+    with its valid range; padding rows hold nothing valid.  Returns
+    (bufs uint8 [SEG_BATCH, SEG_BUF], start_valid, end_valid int32,
+    cut_boundary, limit_final bool), numpy arrays."""
+    bufs = np.zeros((SEG_BATCH, SEG_BUF), np.uint8)
+    sv = np.full(SEG_BATCH, SEG_BUF, np.int32)
+    ev = np.zeros(SEG_BATCH, np.int32)
+    cut = np.zeros(SEG_BATCH, bool)
+    fin = np.zeros(SEG_BATCH, bool)
+    for r, s0 in enumerate(group):
+        lo = max(s0 - HALO, vstart if legacy else 0)
+        hi = min(s0 + SEG + TAIL, vend)
+        hl = s0 - lo
+        bufs[r, HALO - hl: HALO - hl + hi - lo] = varr[lo:hi]
+        sv[r] = HALO - hl
+        ev[r] = HALO - hl + hi - lo
+        cut[r] = block_cut and s0 == vstart
+        fin[r] = hi == vend
+    return bufs, sv, ev, cut, fin
+
+
+def _compress_sorted(out, data, vdata, d, blocks, legacy, parity, stages,
+                     dev):
+    """Sort-engine stream loop (the reference's ``_process_block_window``
+    over windows of WINDOW blocks): dispatch every segment group of the
+    window, collect the results into host memory, then refine (parity
+    mode), DP and emit each block in the worker pool."""
+    varr = np.frombuffer(vdata, np.uint8)
+    on_card = dev.type == "cuda"
+    to_dev, to_host = _device_pair(on_card, dev)
+    pool = host_par._pool(None)  # persistent: workers keep warm match tables
+
+    def add(key, v):
+        stages[key] = stages.get(key, 0) + v
+
+    def finish(start, end, lens, dists, conv):
+        bs = end - start
+        vstart, vend = start + d, end + d
+        block_cut = _block_cut(start, legacy)
+        if parity:
+            mask = ~conv
+            if mask.any():
+                lo = vstart if legacy else max(vstart - HALO, 0)
+                base_r = vstart - lo
+                cut = base_r - fmt.BLOCK_END_NO_MATCH if block_cut else -1
+                native.match_refine(
+                    varr[lo:vend], base=base_r, bs=bs, lookback=base_r,
+                    mask=mask, lens=lens, dists=dists, cut_pos=cut)
+        native.estimate_costs(lens, dists)
+        payload = native.emit_block(data[start:end], lens, dists)
+        if len(payload) < bs or legacy:
+            return payload, False
+        return data[start:end], True
+
+    def dispatch(start, end):
+        """Queue every segment group of one block on the device."""
+        vstart, vend = start + d, end + d
+        block_cut = _block_cut(start, legacy)
+        seg_starts = list(range(vstart, vend, SEG))
+        entries = []
+        for g0 in range(0, len(seg_starts), SEG_BATCH):
+            group = seg_starts[g0: g0 + SEG_BATCH]
+            arrays = segment_group(varr, vstart, vend, group, legacy,
+                                   block_cut)
+            timing = None
+            if on_card:
+                timing = (torch.cuda.Event(enable_timing=True),
+                          torch.cuda.Event(enable_timing=True))
+                timing[0].record()
+            res = sm.match_segments(*(to_dev(a) for a in arrays))
+            # conv is consumed only by the parity refine
+            host = [to_host(a) for a in (res if parity else res[:2])]
+            done = None
+            if on_card:
+                timing[1].record()
+                done = torch.cuda.Event()
+                done.record()
+            add("n_dispatches", 1)
+            add("n_h2d_bytes", sum(a.nbytes for a in arrays))
+            add("n_d2h_bytes", sum(h.numel() * h.element_size()
+                                   for h in host))
+            entries.append((group, host, done, timing))
+        return entries
+
+    def collect(start, end, entries):
+        """Wait for one block's dispatches (calling thread) and assemble
+        its position-order arrays."""
+        bs = end - start
+        vstart, vend = start + d, end + d
+        lens = np.empty(bs, np.int32)
+        dists = np.empty(bs, np.int32)
+        conv = np.ones(bs, bool)
+        for group, host, done, timing in entries:
+            if done is not None:
+                done.synchronize()
+                add("device_match_ms", timing[0].elapsed_time(timing[1]))
+            arrays = [h.numpy() for h in host]
+            for r, s0 in enumerate(group):
+                w = min(SEG, vend - s0)
+                o = s0 - vstart
+                lens[o: o + w] = arrays[0][r, :w]
+                dists[o: o + w] = arrays[1][r, :w]
+                if parity:
+                    conv[o: o + w] = arrays[2][r, :w]
+        # block-tail rule: the last 11 positions are literals
+        tail = min(fmt.BLOCK_END_NO_MATCH - 1, bs)
+        lens[bs - tail:] = 1
+        dists[bs - tail:] = 0
+        conv[bs - tail:] = True
+        add("n_positions", bs)
+        if parity:
+            add("n_refine_positions", int(bs - conv.sum()))
+        return lens, dists, conv
+
+    for w0 in range(0, len(blocks), WINDOW):
+        window = blocks[w0: w0 + WINDOW]
+        t0 = time.perf_counter()
+        queued = [dispatch(start, end) for start, end in window]
+        add("device_dispatch", time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        jobs = [pool.submit(finish, start, end,
+                            *collect(start, end, entries))
+                for (start, end), entries in zip(window, queued)]
+        add("device_sync", time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        for job in jobs:  # frame order
+            payload, stored = job.result()
+            out += fmt.build_block_header(len(payload), stored, legacy)
+            out += payload
+        add("host_refine_dp_emit", time.perf_counter() - t0)
 
 
 class _Done:

@@ -13,8 +13,8 @@ import numpy as np
 import pytest
 import torch
 
-from smallz4_tpu import format as fmt
-from smallz4_tpu import native
+from smallz4_tpu_torch import format as fmt
+from smallz4_tpu_torch import native
 from smallz4_tpu_torch.ops import chunkmatch as tcm
 
 C = 1024   # test chunk size

@@ -1,0 +1,206 @@
+"""PyTorch port of the sort search engine (smallz4_tpu_torch/ops/sortmatch.py).
+
+The port's plain path must return the reference's arrays exactly (integers,
+tolerance 0): the reference (smallz4_tpu/ops/sortmatch.py) runs its Pallas
+kernels in interpret mode on the same numpy inputs.  The port's scan stores
+its results at each record's raw position; the reference follows its scan
+with a second sort keyed by that position, so the two must agree.  Tests
+marked ``cuda`` hold the CUDA kernels against the plain versions and skip
+without a card.
+"""
+import numpy as np
+import pytest
+import torch
+
+from smallz4_tpu_torch.ops import _cuda
+from smallz4_tpu_torch.ops import sortmatch as tsm
+
+INVALID = 1 << 30
+SCAN_SIZES = [1024, 2048]
+# (seed, start_valid, end_valid, cut_boundary, limit_final)
+SEGMENT_CASES = ([(s, 0, 1024, c, f) for s in (7, 11)
+                  for c in (False, True) for f in (False, True)]
+                 + [(3, 100, 900, False, True)])
+
+
+def _sorted_planes(n, seed):
+    """Sorted record planes (k1, k2, pos_t, e1, e2) as int32 numpy arrays:
+    few distinct grams so groups are long, payload words that share
+    leading bytes, raw positions a permutation with a fifth of the
+    records marked invalid (+2^30), as match_segment makes them."""
+    rng = np.random.default_rng(seed)
+    k1 = rng.integers(0, 12, n).astype(np.uint32) * np.uint32(0x01010101)
+    k2 = rng.integers(0, 1 << 32, n, dtype=np.uint64).astype(np.uint32)
+    k2[: n // 3] &= np.uint32(0xFFFF0000)  # equal high halves: pos decides
+    raw = rng.permutation(n).astype(np.int64)
+    pos_t = np.where(rng.random(n) < 0.2, raw + INVALID, raw).astype(np.int32)
+    e = rng.integers(0, 3, (n, 8), dtype=np.uint8)  # 8 payload bytes
+    e1 = e[:, :4].copy().view("<u4").ravel()
+    e2 = e[:, 4:].copy().view("<u4").ravel()
+    order = np.lexsort((pos_t, k2, k1))
+    return [p[order].view(np.int32) for p in (k1, k2, pos_t, e1, e2)]
+
+
+def _chain_inputs(n, seed):
+    rng = np.random.default_rng(seed)
+    lens = rng.choice([0, 4, 5, 8, 12], n).astype(np.int32)
+    dists = rng.choice([0, 1, 2, 7, 300], n).astype(np.int32)
+    dists[rng.random(n) < 0.3] = 7  # long same-distance runs
+    lens[dists == 0] = 0
+    return lens, dists
+
+
+def _segment_buf(seed, n=1024):
+    """The reference tests' segment corpus (tests/test_sortmatch.py), with
+    the 16-byte lookahead; seed 3 is its random partial-validity buffer."""
+    rng = np.random.default_rng(seed)
+    if seed == 3:
+        return rng.integers(97, 100, n + 16).astype(np.uint8)
+    parts = [bytes(rng.integers(97, 102, 400, dtype=np.uint8)), b"A" * 300,
+             bytes(rng.integers(0, 256, 200, dtype=np.uint8)),
+             bytes(rng.integers(97, 102, 200, dtype=np.uint8))]
+    buf = np.zeros(n + 16, np.uint8)
+    buf[:n] = np.frombuffer((b"".join(parts) * 2)[:n], np.uint8)
+    return buf
+
+
+def _batch_inputs():
+    """One [2, SEG_BUF] dispatch at full size: a segment of mixed data
+    with a boundary cut and a read-ahead bound, and a padding row."""
+    from smallz4_tpu_torch.ops import pipeline
+
+    rng = np.random.default_rng(21)
+    bufs = np.zeros((2, pipeline.SEG_BUF), np.uint8)
+    text = np.frombuffer(b"the quick brown fox jumps over the lazy dog. "
+                         * 1000, np.uint8)
+    bufs[0, 1000: 1000 + len(text)] = text
+    bufs[0, 60000:90000] = rng.integers(0, 4, 30000, dtype=np.uint8)
+    bufs[0, 100000:110000] = 0
+    sv = np.array([1000, pipeline.SEG_BUF], np.int32)
+    ev = np.array([pipeline.SEG_BUF, 0], np.int32)
+    cut = np.array([True, False])
+    fin = np.array([False, False])
+    return bufs, sv, ev, cut, fin
+
+
+@pytest.fixture(scope="module")
+def ref():
+    """Reference outputs (interpret mode), computed once per module."""
+    jax = pytest.importorskip("jax")
+    import jax.numpy as jnp
+    from jax.experimental.pallas import tpu as pltpu
+
+    from smallz4_tpu.ops import sortmatch, sortnet
+
+    out = {}
+    with pltpu.force_tpu_interpret_mode():
+        for n in SCAN_SIZES:
+            k1, _, pos, e1, e2 = map(jnp.asarray, _sorted_planes(n, seed=n))
+            blen, bdist, bflag = sortmatch._neighbor_scan(k1, pos, e1, e2)
+            raw = (pos & (INVALID - 1)).view(jnp.uint32)
+            _, *unsorted = sortnet.sort_records(raw, blen, bdist, bflag,
+                                                n_keys=1)
+            out["scan", n] = [np.asarray(u) for u in unsorted]
+        lens, dists = _chain_inputs(1024, seed=5)
+        out["chain"] = np.asarray(sortmatch._chain(
+            jnp.asarray(lens), jnp.asarray(dists), 10))
+        for case in SEGMENT_CASES:
+            seed, sv, ev, cut, fin = case
+            res = sortmatch.match_segment(
+                jnp.asarray(_segment_buf(seed)), jnp.int32(sv), jnp.int32(ev),
+                n_entries=1024, chain_steps=10, cut_boundary=cut,
+                limit_final=fin)
+            out["segment", case] = [np.asarray(r) for r in res]
+        res = sortmatch.match_segments(*map(jnp.asarray, _batch_inputs()))
+        out["segments"] = [np.asarray(r) for r in res]
+    jax.clear_caches()
+    return out
+
+
+@pytest.mark.parametrize("n", SCAN_SIZES)
+def test_neighbor_scan_equals_reference_scan_and_unsort(ref, n):
+    rec = torch.from_numpy(np.stack(_sorted_planes(n, seed=n)))[None]
+    got = tsm.neighbor_scan(rec)
+    for g, want in zip(got, ref["scan", n]):
+        assert g.dtype == torch.int32 and g.shape == (1, n)
+        np.testing.assert_array_equal(g[0].numpy(), want)
+    assert (got[0] > 0).any() and (got[2] & 2).any()  # claims and groups
+
+
+def test_chain_equals_reference(ref):
+    lens, dists = _chain_inputs(1024, seed=5)
+    got = tsm.chain(torch.from_numpy(lens)[None], torch.from_numpy(dists)[None],
+                    10)
+    np.testing.assert_array_equal(got[0].numpy(), ref["chain"])
+    assert (got[0].numpy() > lens).any()  # the doubling extended claims
+
+
+@pytest.mark.parametrize("case", SEGMENT_CASES, ids=str)
+def test_match_segment_equals_reference(ref, case):
+    seed, sv, ev, cut, fin = case
+    got = tsm.match_segment(torch.from_numpy(_segment_buf(seed)), sv, ev,
+                            n_entries=1024, chain_steps=10, cut_boundary=cut,
+                            limit_final=fin)
+    for g, want in zip(got, ref["segment", case]):
+        np.testing.assert_array_equal(g.numpy(), want)
+
+
+def test_match_segments_full_size_equals_reference(ref):
+    """[2, SEG_BUF] at N_ENTRIES = 2^17 with a padding row; the reference
+    returns uint16 lens/dists, the port int32 clamped to 65535."""
+    got = tsm.match_segments(*map(torch.from_numpy, _batch_inputs()))
+    lens, dists, conv = got
+    assert lens.shape == (2, tsm.SEG) and lens.dtype == torch.int32
+    assert conv.dtype == torch.bool
+    for g, want in zip(got, ref["segments"]):
+        np.testing.assert_array_equal(g.numpy().astype(np.int64),
+                                      want.astype(np.int64))
+    assert (lens[1] == 1).all() and conv[1].all()  # padding: nothing valid
+
+
+def test_mix_is_uint32_arithmetic():
+    """The int64 hash mix equals the uint32 arithmetic it stands for."""
+    rng = np.random.default_rng(4)
+    a = rng.integers(0, 1 << 32, 1000, dtype=np.uint64)
+    b = rng.integers(0, 1 << 32, 1000, dtype=np.uint64)
+    m = np.uint64(0xFFFFFFFF)
+    want = ((a ^ ((b * np.uint64(0x9E3779B1)) & m))
+            * np.uint64(0x85EBCA77)) & m
+    got = tsm._mix(torch.from_numpy(a.astype(np.int64)),
+                   torch.from_numpy(b.astype(np.int64)))
+    np.testing.assert_array_equal(got.numpy().astype(np.uint64), want)
+
+
+def _cuda_or_skip():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", SCAN_SIZES + [1 << 17])
+def test_scan_and_chain_kernels_equal_plain_cuda(n):
+    dev = _cuda_or_skip()
+    rec = torch.from_numpy(np.stack([np.stack(_sorted_planes(n, seed=s))
+                                     for s in (1, 2, 3)])).to(dev)
+    before = dict(_cuda.LAUNCHES)
+    got = tsm.neighbor_scan(rec)
+    torch.cuda.synchronize()
+    for g, w in zip(got, tsm.neighbor_scan_plain(rec)):
+        assert torch.equal(g, w)
+    lens, dists = (torch.from_numpy(np.stack([a, a[::-1].copy()])).to(dev)
+                   for a in _chain_inputs(n, seed=9))
+    assert torch.equal(tsm.chain(lens, dists, 14),
+                       tsm.chain_plain(lens, dists, 14))
+    assert _cuda.LAUNCHES["scan"] == before["scan"] + 1
+    assert _cuda.LAUNCHES["chain"] == before["chain"] + 1
+
+
+@pytest.mark.cuda
+def test_match_segments_on_cuda_equals_cpu():
+    dev = _cuda_or_skip()
+    inputs = [torch.from_numpy(a) for a in _batch_inputs()]
+    got = tsm.match_segments(*(t.to(dev) for t in inputs))
+    want = tsm.match_segments(*inputs)
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
