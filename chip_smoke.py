@@ -18,6 +18,9 @@ network and no arguments.  Phases:
      record sort at [8, 5, 2^17] with two keys, the neighbour scan (with the
      unsort), the chain and the run lengths against their plain versions;
      plus the device time of one whole dispatch;
+  2c. walk-engine kernels: on the same dispatch, gram_hash and the walk
+     (max_candidates=64, ext_cap=512) against their plain versions; plus
+     the device time of one whole walk match_segments dispatch;
   3. chunk engine end to end, with SMALLZ4_TPU_CPU_ASSIST=0 so every block
      goes through the device: compress(data, 9) on the 10 MB fixture
      (modern and legacy) and on make_corpus(8 MiB) must equal
@@ -26,10 +29,15 @@ network and no arguments.  Phases:
   3b. sort engine end to end: the fixture at 1 MiB blocks (the fallback
      route) and at 4 MiB blocks with kernel="sort", equal to native and
      decoding back, one launch of each sort-engine kernel per dispatch; one
-     parity=False sort-engine stream must round-trip.
+     parity=False sort-engine stream must round-trip;
+  3c. walk engine end to end: the fixture at 4 MiB blocks with
+     kernel="walk", equal to native and decoding back, one launch of
+     gram_hash, walk and run_lengths per dispatch; one parity=False
+     walk-engine stream must round-trip.
 
 Prints a {"kernels": [...]} JSON line (each kernel's launches on its main
-path, error, kernel / plain / library time and bound), the nvidia-smi line,
+path, error, kernel / plain / library time and bound; run_lengths counts
+its sort-engine launches), the nvidia-smi line,
 and as the last line {"ok": true, "device": {...}}.  Any failure raises
 (exit != 0) before that line.
 """
@@ -64,9 +72,20 @@ KERNELS = [  # (counter, source, replaced TPU kernel)
      "smallz4_tpu/ops/sortmatch.py:159"),
     ("run_lengths", "smallz4_tpu_torch/csrc/runlen.cu",
      "smallz4_tpu/ops/pallas_kernels.py:145"),
+    ("gram_hash", "smallz4_tpu_torch/csrc/gramhash.cu",
+     "smallz4_tpu/ops/pallas_kernels.py:49"),
+    # XLA in the reference (its lockstep while loops), not Pallas
+    ("walk", "smallz4_tpu_torch/csrc/walk.cu",
+     "smallz4_tpu/ops/match_finder.py:75"),
 ]
 CHUNK_KERNELS = ("sort_records", "merge_sorted", "probe", "compact", "pack")
 SORT_KERNELS = ("sort_records", "scan", "chain", "run_lengths")
+WALK_KERNELS = ("gram_hash", "walk", "run_lengths")
+# integer operations of one walk round of an active lane (activity test,
+# two clipped byte gathers, the distance-1 branch, the update, the hop) and
+# of one extension word (two clipped word gathers, xor, test, add, clamp)
+WALK_OPS_PER_HOP = 20
+WALK_OPS_PER_WORD = 12
 
 # H100 SXM peaks (NVIDIA's data sheet, at a 700 W power limit): HBM rate,
 # and the 32-bit rate outside the tensor cores (67 TFLOP/s float32), taken
@@ -154,7 +173,8 @@ def check_kernels(torch, cases, phase: str, shape_note: str) -> dict:
             f"{bound_ms * 1e3:.2f} us ({bound_by})  ({shape_note})")
         if err != 0:
             raise AssertionError(f"{name}: kernel != plain (max err {err})")
-        # no single PyTorch call computes any of these functions
+        # no single PyTorch call computes these functions (the sort at the
+        # sort-engine shape gets its library time in phase 2b)
         results[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                          "bound_ms": bound_ms, "bound_by": bound_by,
                          "library_ms": None}
@@ -240,6 +260,7 @@ def main() -> int:
     from smallz4_tpu_torch import native
     from smallz4_tpu_torch.ops import _cuda, sortnet
     from smallz4_tpu_torch.ops import chunkmatch as cm
+    from smallz4_tpu_torch.ops import match_finder as mf
     from smallz4_tpu_torch.ops import pallas_kernels as pk
     from smallz4_tpu_torch.ops import pipeline
     from smallz4_tpu_torch.ops import sortmatch as sm
@@ -360,6 +381,22 @@ def main() -> int:
     results["sort_records"]["sort_engine"] = sresults.pop("sort_records")
     results.update(sresults)
 
+    # library yardstick of the 2-key sort: one stable torch.sort of the two
+    # key words packed into int64 (unsigned order), then a gather of the
+    # planes; its ties keep position order, the kernel's break by pos_t
+    def packed_sort():
+        key = (((rec[:, 0].long() & 0xFFFFFFFF) - (1 << 31)) << 32) \
+            | (rec[:, 1].long() & 0xFFFFFFFF)
+        order = torch.sort(key, dim=-1, stable=True).indices
+        return rec.gather(2, order[:, None].expand_as(rec))
+
+    lib_ms = cuda_ms(torch, packed_sort, 10)
+    lib_diff = int((packed_sort() != srec).any(1).sum())
+    results["sort_records"]["sort_engine"]["library_ms"] = lib_ms
+    log(f"[2b] library yardstick: stable torch.sort of packed int64 keys + "
+        f"gather {lib_ms:.4f} ms; records placed unlike the kernel (ties of "
+        f"both key words): {lib_diff} of {B * n}")
+
     def dispatch():
         return sm.match_segments(sbufs, sv, ev, scut, sfin)
 
@@ -369,6 +406,36 @@ def main() -> int:
     log(f"[2b] match_segments, one dispatch ({B} rows, {searched} searched "
         f"positions): {disp_ms:.3f} ms device = "
         f"{searched / disp_ms / 1e3:.2f} MB/s device-only match rate")
+
+    # -- phase 2c: walk-engine kernels against their plain versions -------
+    base, wk = mf.HALO, 64
+    wg, wprev, wruns = mf.walk_inputs(sbufs, sv, ev, scut, base)
+    wargs = (sbufs, wg, wprev, wruns, sv, ev, base, mf.SEG, wk, mf.EXT_CAP)
+    work: dict = {}
+    wconv = mf.walk_plain(*wargs, counts=work)[2]
+    log(f"[2c] walk work on this dispatch: {work['hops']} candidate hops, "
+        f"{work['ext_words']} extension words; converged "
+        f"{float(wconv.float().mean()):.4%} of its {wconv.numel()} lanes")
+    wcases = {
+        "gram_hash": (lambda: pk.gram_hash(sbufs),
+                      lambda: pk.gram_hash_plain(sbufs), (sbufs,),
+                      B * mf.SEG_BUF * 8),
+        "walk": (lambda: mf.walk(*wargs), lambda: mf.walk_plain(*wargs),
+                 (sbufs, wg, wprev, wruns, sv, ev),
+                 work["hops"] * WALK_OPS_PER_HOP
+                 + work["ext_words"] * WALK_OPS_PER_WORD),
+    }
+    results.update(check_kernels(torch, wcases, "2c",
+                                 f"{B} x {mf.SEG_BUF} bytes, one dispatch, "
+                                 f"max_candidates={wk}"))
+
+    def walk_dispatch():
+        return mf.match_segments(sbufs, sv, ev, scut, max_candidates=wk)
+
+    wdisp_ms = cuda_ms(torch, walk_dispatch, 5)
+    log(f"[2c] walk match_segments, one dispatch ({B} rows, {searched} "
+        f"searched positions): {wdisp_ms:.3f} ms device = "
+        f"{searched / wdisp_ms / 1e3:.2f} MB/s device-only match rate")
 
     # -- phase 3: chunk engine end to end ---------------------------------
     def chunk_expected(data, block):
@@ -424,12 +491,34 @@ def main() -> int:
     log(f"[3b] sort engine parity=False (1 MiB blocks): {len(raw)} B, "
         f"round-trips")
 
+    # -- phase 3c: walk engine end to end ---------------------------------
+    exp = sort_expected(real, fmt.MAX_BLOCK_SIZE)
+    n_disp = exp["scan"]
+    exp = {k: 0 for k in _cuda.LAUNCHES} | {k: n_disp for k in WALK_KERNELS}
+    log(f"[3c] walk engine, realcorpus_4MiB_walk ({n_disp} dispatches, "
+        f"max_candidates=64)")
+    walk_launches, _ = encode_run(torch, _cuda, native, pipeline,
+                                  "realcorpus_4MiB_walk", real, exp,
+                                  block_size=fmt.MAX_BLOCK_SIZE,
+                                  kernel="walk")
+    raw = pipeline.compress(real, 9, parity=False, kernel="walk", device=dev)
+    if native.decompress(raw) != real:
+        raise AssertionError("walk-engine parity=False stream does not "
+                             "round-trip")
+    log(f"[3c] walk engine parity=False (4 MiB blocks): {len(raw)} B, "
+        f"round-trips")
+
     results["sort_records"]["sort_engine"]["launches"] = \
         sort_launches["sort_records"]
+
+    def path_launches(name):
+        if name in CHUNK_KERNELS:
+            return launches[name]
+        return (walk_launches if name in ("gram_hash", "walk")
+                else sort_launches)[name]
+
     kernels = [{"name": name, "route": "cuda", "source": src,
-                "replaces": rep,
-                "launches": (launches if name in CHUNK_KERNELS
-                             else sort_launches)[name],
+                "replaces": rep, "launches": path_launches(name),
                 **results[name]} for name, src, rep in KERNELS]
     for k in kernels:
         if k["launches"] < 1:

@@ -23,8 +23,8 @@ def compress(data, level: int = 9, legacy: bool = False, dictionary=None,
     """Compress to a complete LZ4 frame.  ``engine``: 'auto' (= 'device')
     | 'device' | 'native'.  The device engine runs on ``device`` (a CUDA
     device by default; without one it raises, pass device='cpu' for the
-    plain versions) with search ``kernel`` 'chunk' or 'sort' (None reads
-    $SMALLZ4_TPU_KERNEL; see ops.pipeline.compress)."""
+    plain versions) with search ``kernel`` 'chunk', 'sort' or 'walk' (None
+    reads $SMALLZ4_TPU_KERNEL; see ops.pipeline.compress)."""
     from .codec import compress as _compress
     return _compress(data, level=level, legacy=legacy, dictionary=dictionary,
                      block_size=block_size, engine=engine, device=device,

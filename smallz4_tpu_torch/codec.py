@@ -1,9 +1,9 @@
 """Engine dispatch for the public compress/decompress API of the port.
 
 Engines:
-  'device' — the device pipeline (ops.pipeline) on a torch.device: a CUDA
-             device runs the hand-written kernels, the CPU their plain
-             PyTorch versions.
+  'device' — the device pipeline (ops.pipeline) on a torch.device, with
+             the search kernel 'chunk', 'sort' or 'walk': a CUDA device runs
+             the hand-written kernels, the CPU their plain PyTorch versions.
   'native' — the C++ host runtime (smallz4_tpu_torch.native).
   'auto'   — 'device' for compress; 'native' for decompress, whose device
              decode is not ported yet (ROADMAP.md, queue 1: decode).

@@ -1,8 +1,9 @@
 """LZ4 frame and block format: the constants and headers the port writes.
 
 The port's own copy of what it uses from ``smallz4_tpu/format.py`` (the
-reference's format layer, parity notes there): block-end rules, window and
-block sizes, the frame header, block size words and the end mark.  Pure
+reference's format layer, parity notes there): block-end rules, the
+match-finder hash, window and block sizes, the frame header, block size
+words and the end mark.  Pure
 Python; no kernels.
 """
 from __future__ import annotations
@@ -12,6 +13,9 @@ import struct
 MIN_MATCH = 4                    # minimum match length
 BLOCK_END_NO_MATCH = 12          # no match starts within 12 B of block end
 BLOCK_END_LITERALS = 5           # last 5 bytes of a block are always literals
+
+HASH_BITS = 20                   # match-finder hash width
+HASH_MULTIPLIER = 48271          # LCG multiplier (smallz4.h:164-169)
 
 MAX_DISTANCE = 65535             # match window (u16 offsets)
 MAX_CHAIN_LENGTH = MAX_DISTANCE  # "unlimited" chain steps => optimal parsing

@@ -34,7 +34,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 #: wrapper name -> number of launches on a CUDA device
 LAUNCHES = {"sort_records": 0, "merge_sorted": 0, "probe": 0, "compact": 0,
-            "pack": 0, "scan": 0, "chain": 0, "run_lengths": 0}
+            "pack": 0, "scan": 0, "chain": 0, "run_lengths": 0,
+            "gram_hash": 0, "walk": 0}
 
 _lock = threading.Lock()
 _lib = None
@@ -60,6 +61,11 @@ _SIGNATURES = {
     "s4_chain": [_P, _P, _P, _P, _I, _I, _I, _P],
     # x, out, scratch, B, n, stream
     "s4_run_lengths": [_P, _P, _P, _I, _I, _P],
+    # x, grams, hashes, B, n, stream
+    "s4_gram_hash": [_P, _P, _P, _I, _I, _P],
+    # ctx, grams, prev, runs, start_valid, end_valid, lens, dists, conv, B,
+    # n, base, search_len, max_candidates, ext_cap, stream
+    "s4_walk": [_P] * 9 + [_I] * 6 + [_P],
 }
 
 

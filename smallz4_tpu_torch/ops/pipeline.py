@@ -1,12 +1,14 @@
 """The 'device' engine: the level-9 encode on one torch device.
 
-Port of ``smallz4_tpu/ops/pipeline.py`` ``compress`` and its two Pallas
-search paths: the chunk engine (``_compress_chunked``: one
-``ops.chunkmatch.match_chunks`` call per group of GROUP chunks) and the sort
-engine (``_process_block_window``: one ``ops.sortmatch.match_segments``
-call per dispatch of SEG_BATCH segments).  The device runs the match
-search; the host runtime (``smallz4_tpu_torch.native``) refines uncertified
-positions, runs the optimal-parse DP and emits, in a worker pool.  With
+Port of ``smallz4_tpu/ops/pipeline.py`` ``compress`` and its three search
+paths: the chunk engine (``_compress_chunked``: one
+``ops.chunkmatch.match_chunks`` call per group of GROUP chunks), and the
+sort and walk engines (``_compress_sorted``, the reference's
+``_process_block_window``: one ``ops.sortmatch.match_segments`` or
+``ops.match_finder.match_segments`` call per dispatch of SEG_BATCH
+segments).  The device runs the match search; the host runtime
+(``smallz4_tpu_torch.native``) refines uncertified positions, runs the
+optimal-parse DP and emits, in a worker pool.  With
 ``parity=True`` the stream is bit-identical to ``native.compress(data, 9)``
 and ``smallz4 -9``.
 
@@ -30,14 +32,15 @@ from .. import format as fmt
 from .. import native
 from ..parallel import host as host_par
 from . import chunkmatch as cm
+from . import match_finder as mf
 from . import sortmatch as sm
 
 HALO = fmt.MAX_DISTANCE  # 64 KB - 1: the dependent-block history window
 
-# sort-engine segment geometry (smallz4_tpu/ops/match_finder.py)
-SEG = sm.SEG                  # positions searched per segment
-TAIL = 2048                   # segment read-ahead (match headroom)
-SEG_BUF = HALO + SEG + TAIL   # segment buffer bytes
+# sort- and walk-engine segment geometry
+SEG = mf.SEG                  # positions searched per segment
+TAIL = mf.TAIL                # segment read-ahead (match headroom)
+SEG_BUF = mf.SEG_BUF          # segment buffer bytes
 SEG_BATCH = 8                 # segments per match_segments dispatch
 WINDOW = 8                    # blocks in flight
 
@@ -129,11 +132,12 @@ def _device_pair(on_card: bool, dev: torch.device):
 
 def _choose_kernel(kernel: str | None, block_size: int) -> str:
     """The search engine: ``kernel`` or, if None, $SMALLZ4_TPU_KERNEL, or
-    'chunk'.  'chunk' needs block_size % (GROUP*CHUNK) == 0 and falls back
-    to 'sort' otherwise (with a warning when the kernel was asked for).
-    The reference falls back to 'walk' off a TPU because its Pallas kernels
-    need one; the port's plain versions run anywhere, so it falls back to
-    'sort' on the CPU as on a GPU."""
+    'chunk'; 'sort' and 'walk' take any block size.  'chunk' needs
+    block_size % (GROUP*CHUNK) == 0 and falls back to 'sort' otherwise
+    (with a warning when the kernel was asked for).  The reference falls
+    back to 'walk' off a TPU because its Pallas kernels need one; the
+    port's plain versions run anywhere, so it falls back to 'sort' on the
+    CPU as on a GPU."""
     if kernel is None:
         kernel = os.environ.get("SMALLZ4_TPU_KERNEL", "")
     explicit = bool(kernel)
@@ -145,11 +149,7 @@ def _choose_kernel(kernel: str | None, block_size: int) -> str:
                 f"{cm.GROUP * cm.CHUNK} == 0 (got {block_size}); falling "
                 f"back to kernel='sort'", stacklevel=3)
         kernel = "sort"
-    if kernel == "walk":
-        raise NotImplementedError(
-            "kernel='walk' is not ported yet (ROADMAP.md, queue 1, item 5: "
-            "the walk engine)")
-    if kernel not in ("chunk", "sort"):
+    if kernel not in ("chunk", "sort", "walk"):
         raise ValueError(f"unknown device kernel {kernel!r}")
     return kernel
 
@@ -157,13 +157,15 @@ def _choose_kernel(kernel: str | None, block_size: int) -> str:
 def compress(data, level: int = 9, legacy: bool = False, dictionary=None,
              block_size: int | None = None, parity: bool = True,
              device="cuda", stats: dict | None = None,
-             kernel: str | None = None) -> bytes:
+             kernel: str | None = None, max_candidates: int = 64) -> bytes:
     """Compress via the device match search on ``device`` (a CUDA device
     runs the hand-written kernels, the CPU their plain versions; a CUDA
     device without CUDA raises).  Levels other than 9 and small-block
     parity streams go to the native encoder, as in the reference.
-    ``kernel``: the search engine, 'chunk' (default) or 'sort'; None reads
-    $SMALLZ4_TPU_KERNEL; see ``_choose_kernel`` for the fallback.
+    ``kernel``: the search engine, 'chunk' (default), 'sort' or 'walk';
+    None reads $SMALLZ4_TPU_KERNEL; see ``_choose_kernel`` for the
+    fallback.  ``max_candidates``: the walk's candidate rounds per
+    position (parity mode refines the positions it leaves unconverged).
     ``stats``, if given, receives per-stage wall times and counters
     (``n_*``), and on a CUDA device the device time of the match search
     (``device_match_ms``)."""
@@ -197,9 +199,12 @@ def compress(data, level: int = 9, legacy: bool = False, dictionary=None,
         dict_tail = bytes(dictionary)[-fmt.MAX_DISTANCE:]
     out = bytearray(fmt.build_frame_header(legacy))
     stages: dict = {}
-    run = _compress_chunked if kernel == "chunk" else _compress_sorted
-    run(out, data, dict_tail + data, len(dict_tail),
-        _blocks(len(data), block_size), legacy, parity, stages, dev)
+    args = (out, data, dict_tail + data, len(dict_tail),
+            _blocks(len(data), block_size), legacy, parity, stages, dev)
+    if kernel == "chunk":
+        _compress_chunked(*args)
+    else:
+        _compress_sorted(*args, kernel=kernel, max_candidates=max_candidates)
     out += fmt.build_end_mark(legacy)
     if stats is not None:
         stats.update(stages)
@@ -516,11 +521,13 @@ def segment_group(varr: np.ndarray, vstart: int, vend: int, group,
 
 
 def _compress_sorted(out, data, vdata, d, blocks, legacy, parity, stages,
-                     dev):
-    """Sort-engine stream loop (the reference's ``_process_block_window``
-    over windows of WINDOW blocks): dispatch every segment group of the
-    window, collect the results into host memory, then refine (parity
-    mode), DP and emit each block in the worker pool."""
+                     dev, kernel="sort", max_candidates=64):
+    """Segment-engine stream loop (the reference's
+    ``_process_block_window`` over windows of WINDOW blocks): dispatch
+    every segment group of the window to ``sortmatch.match_segments``
+    (kernel 'sort') or ``match_finder.match_segments`` ('walk'), collect
+    the results into host memory, then refine (parity mode), DP and emit
+    each block in the worker pool."""
     varr = np.frombuffer(vdata, np.uint8)
     on_card = dev.type == "cuda"
     to_dev, to_host = _device_pair(on_card, dev)
@@ -563,7 +570,12 @@ def _compress_sorted(out, data, vdata, d, blocks, legacy, parity, stages,
                 timing = (torch.cuda.Event(enable_timing=True),
                           torch.cuda.Event(enable_timing=True))
                 timing[0].record()
-            res = sm.match_segments(*(to_dev(a) for a in arrays))
+            bufs, sv, ev, cut, fin = (to_dev(a) for a in arrays)
+            if kernel == "sort":
+                res = sm.match_segments(bufs, sv, ev, cut, fin)
+            else:
+                res = mf.match_segments(bufs, sv, ev, cut,
+                                        max_candidates=max_candidates)
             # conv is consumed only by the parity refine
             host = [to_host(a) for a in (res if parity else res[:2])]
             done = None

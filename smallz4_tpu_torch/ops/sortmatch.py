@@ -25,6 +25,7 @@ import torch
 
 from .. import format as fmt
 from . import _cuda, sortnet
+from .grams import mul32, to_i32
 from .pallas_kernels import run_lengths
 
 INVALID_POS = 1 << 30    # pos_t offset of records that may not match
@@ -38,24 +39,10 @@ EXT_REACH = 12           # byte-verified LCP reach: gram4 + two payload words
 N_ENTRIES = 1 << 17
 SEG = N_ENTRIES - HALO - 1  # 65536 searched positions per segment
 
-_M32 = 0xFFFFFFFF
-
-
-def _mul32(a: torch.Tensor, c: int) -> torch.Tensor:
-    """(a * c) mod 2^32 for int64 ``a`` in [0, 2^32): 16-bit halves of the
-    constant keep every product below 2^63."""
-    return (a * (c & 0xFFFF) + (((a * (c >> 16)) & 0xFFFF) << 16)) & _M32
-
-
 def _mix(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """The reference's word-pair mix of the prefix-hash sort keys, uint32
     arithmetic on int64 values (order hints only, never trusted)."""
-    return _mul32(a ^ _mul32(b, 0x9E3779B1), 0x85EBCA77)
-
-
-def _i32(x: torch.Tensor) -> torch.Tensor:
-    """uint32 values held in int64 -> the same bits as int32."""
-    return torch.where(x >= 1 << 31, x - (1 << 32), x).to(torch.int32)
+    return mul32(a ^ mul32(b, 0x9E3779B1), 0x85EBCA77)
 
 
 def _ext_lcp(xe1: torch.Tensor, xe2: torch.Tensor) -> torch.Tensor:
@@ -209,7 +196,8 @@ def segment_records(bufs: torch.Tensor, start_valid, end_valid, cut_boundary,
     precut = cut & (g4 == g4[:, cut_pos:cut_pos + 1]) & (pos < cut_pos)
     valid = valid & ~precut
     pos_t = torch.where(valid, pos, pos + INVALID_POS)
-    rec = torch.stack([_i32(g4), _i32(k2), pos_t, _i32(e1), _i32(e2)], dim=1)
+    rec = torch.stack([to_i32(g4), to_i32(k2), pos_t, to_i32(e1), to_i32(e2)],
+                      dim=1)
     return rec, valid
 
 

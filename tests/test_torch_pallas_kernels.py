@@ -1,10 +1,11 @@
-"""PyTorch port of the run-length kernel
+"""PyTorch port of the gram-hash and run-length kernels
 (smallz4_tpu_torch/ops/pallas_kernels.py).
 
-The port's plain path must return the reference's run lengths exactly
-(integers, tolerance 0): the reference (smallz4_tpu/ops/pallas_kernels.py
-``run_lengths``) runs its Pallas kernel in interpret mode on the same numpy
-inputs.  Tests marked ``cuda`` hold the CUDA kernel against the plain
+The port's plain path must return the reference's grams, hashes and run
+lengths exactly (integers, tolerance 0), the gram kernel's last three
+entries included: the reference (smallz4_tpu/ops/pallas_kernels.py
+``gram_hash`` and ``run_lengths``) runs its Pallas kernels in interpret
+mode on the same numpy inputs.  Tests marked ``cuda`` hold the CUDA kernel against the plain
 version and skip without a card.
 """
 import numpy as np
@@ -15,6 +16,7 @@ from smallz4_tpu_torch.ops import _cuda
 from smallz4_tpu_torch.ops import pallas_kernels as tpk
 
 SIZES = [1024, 4096, 5000, 6000]
+GH_SIZES = [1024, 4096, 5000, 32767, 32768]
 
 
 def _data(n, seed):
@@ -37,6 +39,21 @@ def _rows():
     return np.stack([a, b, c])
 
 
+def _gh_data(n, seed):
+    """Random bytes 1..255 (so the tail grams show what they read past the
+    end), with runs and repeats in the first half."""
+    rng = np.random.default_rng(seed)
+    x = rng.integers(1, 256, n, dtype=np.uint8)
+    x[: n // 2] = np.frombuffer((b"gram hash " * (n // 20 + 1))[: n // 2],
+                                np.uint8)
+    return x
+
+
+def _gh_rows():
+    """Three rows of 32767 bytes: the tail reads the last tile's head."""
+    return np.stack([_gh_data(32767, seed=s) for s in (1, 2, 3)])
+
+
 @pytest.fixture(scope="module")
 def ref():
     """Reference outputs (interpret mode), computed once per module."""
@@ -55,6 +72,11 @@ def ref():
             jnp.asarray(np.full(3072, 65, np.uint8))))
         out["rows"] = [np.asarray(pallas_kernels.run_lengths(jnp.asarray(r)))
                        for r in _rows()]
+        for n in GH_SIZES:
+            out["gh", n] = [np.asarray(a) for a in pallas_kernels.gram_hash(
+                jnp.asarray(_gh_data(n, seed=n)))]
+        out["gh_rows"] = [[np.asarray(a) for a in pallas_kernels.gram_hash(
+            jnp.asarray(r))] for r in _gh_rows()]
     jax.clear_caches()
     return out
 
@@ -81,6 +103,32 @@ def test_run_lengths_batched_rows_equal_reference(ref):
         np.testing.assert_array_equal(row, want)
 
 
+@pytest.mark.parametrize("n", GH_SIZES)
+def test_gram_hash_equals_reference(ref, n):
+    """All n entries, bit for bit: the last three read zero padding, or at a
+    tile edge the last tile's first bytes, as the reference kernel does."""
+    x = _gh_data(n, seed=n)
+    g, h = tpk.gram_hash(torch.from_numpy(x))
+    assert g.dtype == h.dtype == torch.int32 and g.shape == h.shape == (n,)
+    want_g, want_h = ref["gh", n]
+    np.testing.assert_array_equal(g.numpy(), want_g)
+    np.testing.assert_array_equal(h.numpy(), want_h)
+    assert (h.numpy() >= 0).all() and (h.numpy() < 1 << 20).all()
+    if n % tpk.GH_TILE == 0:  # the tail wraps to the tile's head
+        b = [int(v) for v in (x[n - 1], x[0], x[1], x[2])]
+        want = b[0] | b[1] << 8 | b[2] << 16 | b[3] << 24
+        assert int(g[-1]) & 0xFFFFFFFF == want
+
+
+def test_gram_hash_batched_rows_equal_reference(ref):
+    """One call over a [B, n] batch equals the reference on each row."""
+    g, h = tpk.gram_hash(torch.from_numpy(_gh_rows()))
+    assert g.shape == h.shape == (3, 32767)
+    for gr, hr, (want_g, want_h) in zip(g.numpy(), h.numpy(), ref["gh_rows"]):
+        np.testing.assert_array_equal(gr, want_g)
+        np.testing.assert_array_equal(hr, want_h)
+
+
 def test_run_lengths_rejects_bad_input():
     with pytest.raises(ValueError):
         tpk.run_lengths(torch.zeros(16, dtype=torch.int32))
@@ -88,6 +136,8 @@ def test_run_lengths_rejects_bad_input():
         tpk.run_lengths(torch.zeros(2, 2, 16, dtype=torch.uint8))
     with pytest.raises(ValueError):
         tpk.run_lengths(torch.zeros(0, dtype=torch.uint8))
+    with pytest.raises(ValueError, match="gram_hash"):
+        tpk.gram_hash(torch.zeros(16, dtype=torch.int32))
 
 
 @pytest.mark.cuda
@@ -105,3 +155,19 @@ def test_run_lengths_kernel_equals_plain_cuda(shape):
     torch.cuda.synchronize()
     assert _cuda.LAUNCHES["run_lengths"] == before + 1
     assert torch.equal(got, tpk.run_lengths_plain(xd))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(1, 1), (2, 3), (3, 32767), (2, 32768),
+                                   (8, 133119)], ids=str)
+def test_gram_hash_kernel_equals_plain_cuda(shape):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    rng = np.random.default_rng(sum(shape))
+    xd = torch.from_numpy(rng.integers(0, 256, shape, dtype=np.uint8)).cuda()
+    before = _cuda.LAUNCHES["gram_hash"]
+    got = tpk.gram_hash(xd)
+    torch.cuda.synchronize()
+    assert _cuda.LAUNCHES["gram_hash"] == before + 1
+    for g, w in zip(got, tpk.gram_hash_plain(xd)):
+        assert torch.equal(g, w)

@@ -6,7 +6,8 @@ the CPU, where every kernel wrapper takes its plain PyTorch version,
 through the seven scenarios of the reference's own pipeline tests
 (tests/test_chunkmatch.py): parity, small-block delegation, fast
 round-trip, head overflow, CPU assist, legacy and dictionary.  Sort engine:
-at its full segment size, multi-block, legacy and dictionary streams.
+at its full segment size, multi-block, legacy and dictionary streams.  Walk
+engine: the reference tests' parity corpora and multi-block input.
 Parity streams must equal the port's native.compress byte for byte, and
 each engine's parity=False stream must equal the reference engine's
 (smallz4_tpu pipeline, Pallas interpret mode).
@@ -48,6 +49,17 @@ def _mixed_stream(n, seed=5):
             parts.append(bytes([rng.integers(0, 256)])
                          * int(rng.integers(5, 200)))
     return b"".join(parts)[:n]
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The plain versions run loops of small tensor operations; with several
+    test workers on one host, torch's intra-op threads would oversubscribe
+    the cores and stall each other."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 @pytest.fixture()
@@ -177,8 +189,8 @@ def test_levels_below_9_use_native():
 
 def test_unsupported_requests_raise(tiny):
     """A block size the chunk engine cannot take falls back to the sort
-    engine (warning only when 'chunk' was asked for); the walk engine and
-    device decode are not ported."""
+    engine (warning only when 'chunk' was asked for); device decode is not
+    ported."""
     data = _mixed_stream(3 * C)
     _cuda.reset_counts()
     with warnings.catch_warnings():
@@ -189,8 +201,6 @@ def test_unsupported_requests_raise(tiny):
     with pytest.warns(UserWarning, match="falling back to kernel='sort'"):
         assert _compress(data, block_size=C + 512, parity=False,
                          kernel="chunk") == fast
-    with pytest.raises(NotImplementedError, match="walk"):
-        _compress(data, block_size=2 * C, parity=False, kernel="walk")
     with pytest.raises(ValueError, match="unknown device kernel"):
         _compress(data, block_size=2 * C, parity=False, kernel="bitonic")
     with pytest.raises(NotImplementedError, match="decode"):
@@ -238,6 +248,68 @@ def test_sort_engine_fast_stream_equals_reference_engine(reference_native):
     got = _compress(data, block_size=100_000, parity=False, kernel="sort")
     assert got == want
     assert native.decompress(got) == data
+
+
+@pytest.mark.parametrize("name", ["text", "struct", "mixed", "random"])
+def test_walk_engine_parity(corpora, name):
+    """The reference tests' parity corpora (tests/test_tpu_ops.py), one
+    block, at their max_candidates=8."""
+    data = corpora[name]
+    stats = {}
+    got = _compress(data, kernel="walk", max_candidates=8, stats=stats)
+    assert got == native.compress(data, 9)
+    assert stats["n_dispatches"] == 1 and stats["n_positions"] == len(data)
+
+
+def _multiblock_data():
+    """The input of tests/test_tpu_ops.py::test_pipeline_multiblock_parity:
+    a 128 KiB block and a shorter one, two segments each, with history
+    carried over."""
+    rng = np.random.default_rng(5)
+    piece = rng.integers(0, 256, 30000, dtype=np.uint8).tobytes()
+    return (piece + b"needle in a haystack " * 2000 + piece) * 2
+
+
+def test_walk_engine_multiblock_parity():
+    data = _multiblock_data()
+    stats = {}
+    got = _compress(data, block_size=131072, kernel="walk", max_candidates=8,
+                    stats=stats)
+    assert got == native.compress(data, 9, block_size=131072)
+    assert native.decompress(got) == data
+    assert stats["n_dispatches"] == 2
+
+
+def test_walk_engine_fast_stream_equals_reference_engine(reference_native):
+    """parity=False keeps the raw walk claims: the stream must equal the
+    JAX engine's (kernel='walk') and decode back."""
+    pytest.importorskip("jax")
+    from smallz4_tpu.ops import pipeline as ref_pipeline
+
+    data = _mixed_stream(150_000, seed=12)  # 2 blocks, 3 segments
+    want = ref_pipeline.compress(data, 9, block_size=100_000, parity=False,
+                                 kernel="walk", max_candidates=8)
+    got = _compress(data, block_size=100_000, parity=False, kernel="walk",
+                    max_candidates=8)
+    assert got == want
+    assert native.decompress(got) == data
+
+
+def test_walk_engine_from_environment(monkeypatch):
+    """$SMALLZ4_TPU_KERNEL=walk picks the walk engine when kernel=None."""
+    calls = []
+    search = pipeline.mf.match_segments
+
+    def spy(*args, **kw):
+        calls.append(kw["max_candidates"])
+        return search(*args, **kw)
+
+    monkeypatch.setattr(pipeline.mf, "match_segments", spy)
+    monkeypatch.setenv("SMALLZ4_TPU_KERNEL", "walk")
+    data = _mixed_stream(20_000, seed=6)
+    fast = _compress(data, parity=False, max_candidates=4)
+    assert calls == [4]
+    assert native.decompress(fast) == data
 
 
 def test_cuda_device_without_cuda_raises():
@@ -310,3 +382,17 @@ def test_sort_engine_on_cuda_equals_native():
     # two blocks of 2 and 1 segments: one dispatch each
     assert _cuda.LAUNCHES == {k: 0 for k in _cuda.LAUNCHES} | {
         "sort_records": 2, "scan": 2, "chain": 2, "run_lengths": 2}
+
+
+@pytest.mark.cuda
+def test_walk_engine_on_cuda_equals_native():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    data = _multiblock_data()
+    _cuda.reset_counts()
+    got = pipeline.compress(data, 9, block_size=131072, device="cuda",
+                            kernel="walk")
+    assert got == native.compress(data, 9, block_size=131072)
+    # two blocks of 2 segments: one dispatch each
+    assert _cuda.LAUNCHES == {k: 0 for k in _cuda.LAUNCHES} | {
+        "gram_hash": 2, "walk": 2, "run_lengths": 2}
