@@ -12,7 +12,8 @@ network and no arguments.  Phases:
   2. chunk-engine kernels: on one full group (64 chunks x 64 Ki positions)
      of the committed real-data fixture, each CUDA kernel against its plain
      PyTorch version on the card, exact equality, both timed with CUDA
-     events; plus the device time of one whole match_chunks group;
+     events; the sort's and the merge's achieved GB/s over the bytes their
+     passes move; plus the device time of one whole match_chunks group;
   2b. sort-engine kernels: on one full match_segments dispatch (8 segments
      of the fixture, a live boundary cut in row 0, one padding row), the
      record sort at [8, 5, 2^17] with two keys, the neighbour scan (with the
@@ -181,6 +182,22 @@ def check_kernels(torch, cases, phase: str, shape_note: str) -> dict:
     return results
 
 
+def log_sort_rate(_cuda, phase: str, name: str, res: dict, x,
+                  merge: bool) -> None:
+    """The design's bytes for a sort or merge of x ([B, P, n]): one read and
+    one write of x for the tile sort and for each merge pass (the merge is
+    one pass), over the kernel time."""
+    n = x.shape[-1]
+    passes = 1 if merge else 1 + (n // _cuda.lib().s4_sort_tile(n)
+                                  ).bit_length() - 1
+    moved = passes * 2 * nbytes(x)
+    log(f"[{phase}] {name:13s} {passes} pass(es) x 2 x {nbytes(x) / 1e6:.2f}"
+        f" MB = {moved / 1e6:.2f} MB moved: {moved / res['ms'] / 1e6:.2f} "
+        f"GB/s achieved ({moved / res['ms'] * 1e3 / HBM_BYTES_PER_S:.2%} of"
+        f" {HBM_BYTES_PER_S / 1e12:.2f} TB/s); read-once bound "
+        f"{res['bound_ms'] * 1e3:.2f} us")
+
+
 def group_inputs(np, cm, fmt, data: bytes, start: int, bs: int):
     """The pipeline's inputs for the first group of the block at ``start``
     (same construction as ops/pipeline.py dispatch_block)."""
@@ -336,6 +353,10 @@ def main() -> int:
                  tuple(claims), n_rec * 10),
     }
     results = check_kernels(torch, cases, "2", f"{G} x {CH} positions")
+    log_sort_rate(_cuda, "2", "sort_records", results["sort_records"], recs,
+                  False)
+    log_sort_rate(_cuda, "2", "merge_sorted", results["merge_sorted"], x,
+                  True)
     n_heads = packed[2]
     log(f"[2] head counts: min {int(n_heads.min())} max {int(n_heads.max())}"
         f" mean {float(n_heads.float().mean()):.1f} (HEAD_CAP {cm.HEAD_CAP})")
@@ -378,6 +399,8 @@ def main() -> int:
     }
     sresults = check_kernels(torch, scases, "2b",
                              f"{B} x {n} records, one dispatch")
+    log_sort_rate(_cuda, "2b", "sort_records", sresults["sort_records"], rec,
+                  False)
     results["sort_records"]["sort_engine"] = sresults.pop("sort_records")
     results.update(sresults)
 

@@ -47,6 +47,8 @@ _SIGNATURES = {
     "s4_sort_records": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
     # in, out, B, P, n, n_keys, unique, stream
     "s4_merge_halves": [_P, _P, _I, _I, _I, _I, _I, _P],
+    # n -> records per tile of s4_sort_records (no launch)
+    "s4_sort_tile": [_I],
     # planes, payload, key, cut_gram, cut_pos, match_limit, B, n, chunk,
     # probes (host int32 array), n_probes, stream
     "s4_probe": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _I, _P],

@@ -8,9 +8,14 @@ sort lexicographically by the first ``n_keys`` planes compared as
 signed int32) as the tiebreak; the remaining planes ride along.
 
 A CPU tensor takes the plain version (stable ``torch.sort`` passes from the
-least significant key up); a CUDA tensor takes ``csrc/sortnet.cu`` (tile
-bitonic sort + merge-path passes).  With distinct (keys, tiebreak) the two
-and the reference's bitonic network give the same output.
+least significant key up); a CUDA tensor takes ``csrc/sortnet.cu``, a block
+merge sort: 4096-record tiles sorted in registers and shared memory, then
+merge passes in which each block stages both input ranges in shared memory,
+merges 2048 outputs there and writes them plane by plane.  Both are stable:
+records with equal keys (and tiebreak) keep their input order, and a merge
+puts the first half's record first.  So the kernel equals the plain version
+on any input; with distinct (keys, tiebreak), as on every main-path call,
+the reference's bitonic network gives the same output too.
 """
 from __future__ import annotations
 
@@ -35,6 +40,12 @@ def _batched(planes: torch.Tensor, n_keys: int, unique: bool, min_n: int):
         raise ValueError(f"{x.shape[1]} planes cannot hold {n_keys} keys"
                          f"{'' if unique else ' + tiebreak'}")
     return x.contiguous()
+
+
+def _aligned(x: torch.Tensor) -> torch.Tensor:
+    """The kernels read 16-byte words: copy a view that starts off that
+    boundary."""
+    return x.clone() if x.data_ptr() % 16 else x
 
 
 def sort_records_plain(planes: torch.Tensor, n_keys: int = 1,
@@ -62,6 +73,7 @@ def sort_records(planes: torch.Tensor, n_keys: int = 1,
     del unroll
     x = _batched(planes, n_keys, unique, 1024)
     if _cuda.on_cuda(x):
+        x = _aligned(x)
         B, P, n = x.shape
         out = torch.empty_like(x)
         tmp = torch.empty_like(x)
@@ -79,6 +91,7 @@ def merge_sorted(planes: torch.Tensor, n_keys: int = 1,
     be a power of two >= 2048, as in the reference."""
     x = _batched(planes, n_keys, unique, 2048)
     if _cuda.on_cuda(x):
+        x = _aligned(x)
         B, P, n = x.shape
         out = torch.empty_like(x)
         _cuda.launch("merge_sorted", "s4_merge_halves", x.device,
