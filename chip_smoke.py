@@ -13,15 +13,18 @@ network and no arguments.  Phases:
      of the committed real-data fixture, each CUDA kernel against its plain
      PyTorch version on the card, exact equality, both timed with CUDA
      events; the sort's and the merge's achieved GB/s over the bytes their
-     passes move; plus the device time of one whole match_chunks group;
+     passes move, the probe's over the tiles and halos it stages; plus the
+     device time of one whole match_chunks group;
   2b. sort-engine kernels: on one full match_segments dispatch (8 segments
      of the fixture, a live boundary cut in row 0, one padding row), the
      record sort at [8, 5, 2^17] with two keys, the neighbour scan (with the
      unsort), the chain and the run lengths against their plain versions;
      plus the device time of one whole dispatch;
   2c. walk-engine kernels: on the same dispatch, gram_hash and the walk
-     (max_candidates=64, ext_cap=512) against their plain versions; plus
-     the device time of one whole walk match_segments dispatch;
+     (max_candidates=64, ext_cap=512) against their plain versions; the
+     walk's achieved GB/s over its staged bytes and its reads outside them
+     (counted by one more launch with the kernel's stats); plus the device
+     time of one whole walk match_segments dispatch;
   3. chunk engine end to end, with SMALLZ4_TPU_CPU_ASSIST=0 so every block
      goes through the device: compress(data, 9) on the 10 MB fixture
      (modern and legacy) and on make_corpus(8 MiB) must equal
@@ -198,6 +201,52 @@ def log_sort_rate(_cuda, phase: str, name: str, res: dict, x,
         f"{res['bound_ms'] * 1e3:.2f} us")
 
 
+def log_floor_rate(phase: str, name: str, res: dict, moved: int,
+                   what: str) -> None:
+    """A kernel's achieved rate over the bytes its design moves (its own
+    floor), beside the read-once bound."""
+    log(f"[{phase}] {name:13s} design bytes ({what}) {moved / 1e6:.2f} MB: "
+        f"floor {moved / HBM_BYTES_PER_S * 1e6:.2f} us at "
+        f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s; achieved "
+        f"{moved / res['ms'] / 1e6:.2f} GB/s "
+        f"({moved / res['ms'] * 1e3 / HBM_BYTES_PER_S:.2%}); read-once bound "
+        f"{res['bound_ms'] * 1e3:.2f} us")
+
+
+def probe_design_bytes(_cuda, merged, halo: int) -> int:
+    """csrc/probe.cu's staged bytes: every block reads the six planes of its
+    tile and a +-halo of records (clipped to the row) and writes two int32
+    outputs a slot."""
+    B, P, n = merged.shape
+    tile = _cuda.lib().s4_probe_tile()
+    recs = sum(min(t0 + tile + halo, n) - max(t0 - halo, 0)
+               for t0 in range(0, n, tile))
+    return B * recs * P * 4 + 2 * B * n * 4
+
+
+def walk_stage_stats(torch, _cuda, wargs, want) -> tuple[int, int, int]:
+    """One uncounted launch of s4_walk with its stats counters: (bytes the
+    blocks staged, reads outside the staged window, output bytes).  Its
+    outputs must equal ``want``."""
+    ctx, g, prev, runs, sv, ev, base, search_len, maxc, ext_cap = wargs
+    B, n = ctx.shape
+    lens = torch.empty(B, search_len, dtype=torch.int32, device=ctx.device)
+    dists = torch.empty_like(lens)
+    conv = torch.empty(B, search_len, dtype=torch.bool, device=ctx.device)
+    stats = torch.zeros(2, dtype=torch.int64, device=ctx.device)
+    err = _cuda.lib().s4_walk(
+        *(a.data_ptr() for a in (ctx, g, prev, runs, sv, ev, lens, dists,
+                                 conv)),
+        B, n, base, search_len, maxc, ext_cap, stats.data_ptr(),
+        torch.cuda.current_stream(ctx.device).cuda_stream)
+    torch.cuda.synchronize()
+    if err != 0 or max_err(torch, (lens, dists, conv), want) != 0:
+        raise AssertionError(f"s4_walk with stats: error {err} or outputs "
+                             f"differ from the wrapper's")
+    staged, far = (int(v) for v in stats.tolist())
+    return staged, far, nbytes(lens, dists, conv)
+
+
 def group_inputs(np, cm, fmt, data: bytes, start: int, bs: int):
     """The pipeline's inputs for the first group of the block at ``start``
     (same construction as ops/pipeline.py dispatch_block)."""
@@ -357,6 +406,9 @@ def main() -> int:
                   False)
     log_sort_rate(_cuda, "2", "merge_sorted", results["merge_sorted"], x,
                   True)
+    log_floor_rate("2", "probe", results["probe"],
+                   probe_design_bytes(_cuda, merged, max(cm.PROBES)),
+                   "staged tiles and halos + outputs")
     n_heads = packed[2]
     log(f"[2] head counts: min {int(n_heads.min())} max {int(n_heads.max())}"
         f" mean {float(n_heads.float().mean()):.1f} (HEAD_CAP {cm.HEAD_CAP})")
@@ -451,6 +503,14 @@ def main() -> int:
     results.update(check_kernels(torch, wcases, "2c",
                                  f"{B} x {mf.SEG_BUF} bytes, one dispatch, "
                                  f"max_candidates={wk}"))
+    staged, far, out_bytes = walk_stage_stats(torch, _cuda, wargs,
+                                              mf.walk(*wargs))
+    log(f"[2c] walk          staged {staged} bytes (predecessor windows "
+        f"read as int32, bytes, run lengths), {far} reads outside the "
+        f"staged window")
+    log_floor_rate("2c", "walk", results["walk"],
+                   staged + 32 * far + out_bytes,
+                   "staged + one 32-byte sector a far read + outputs")
 
     def walk_dispatch():
         return mf.match_segments(sbufs, sv, ev, scut, max_candidates=wk)

@@ -52,6 +52,8 @@ _SIGNATURES = {
     # planes, payload, key, cut_gram, cut_pos, match_limit, B, n, chunk,
     # probes (host int32 array), n_probes, stream
     "s4_probe": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _I, _P],
+    # -> slots a block of s4_probe covers (no launch)
+    "s4_probe_tile": [],
     # key, payload, okey, opay, B, n, chunk, stream
     "s4_compact": [_P, _P, _P, _P, _I, _I, _I, _P],
     # lens, dists, conv, lk, bits, packed, count, cbits, kbits, B, chunk,
@@ -66,8 +68,9 @@ _SIGNATURES = {
     # x, grams, hashes, B, n, stream
     "s4_gram_hash": [_P, _P, _P, _I, _I, _P],
     # ctx, grams, prev, runs, start_valid, end_valid, lens, dists, conv, B,
-    # n, base, search_len, max_candidates, ext_cap, stream
-    "s4_walk": [_P] * 9 + [_I] * 6 + [_P],
+    # n, base, search_len, max_candidates, ext_cap, stats (uint64 [2] or
+    # null), stream
+    "s4_walk": [_P] * 9 + [_I] * 6 + [_P, _P],
 }
 
 

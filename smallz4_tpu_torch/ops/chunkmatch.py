@@ -44,7 +44,9 @@ if VERIFY_WORDS not in (5, 7):
 LOOK = 4 * VERIFY_WORDS  # lookahead bytes per chunk buffer
 
 #: probe-LCP strategy of the reference.  Both settings give bit-identical
-#: values; the CUDA probe compares the five words directly.
+#: values on key-sorted records; the CUDA probe composes its LCPs from an
+#: adjacent-LCP min-table as the reference's default does, the plain version
+#: compares the five words directly.
 PROBE_LCP = _os.environ.get("SMALLZ4_TPU_PROBE_LCP", "composed")
 if PROBE_LCP not in ("composed", "direct"):
     raise ValueError(f"SMALLZ4_TPU_PROBE_LCP must be 'composed' or 'direct', "
@@ -244,9 +246,13 @@ def probe_plain(merged: torch.Tensor, cut_gram: torch.Tensor,
 def probe(merged: torch.Tensor, cut_gram: torch.Tensor, cut_pos: torch.Tensor,
           match_limit: torch.Tensor,
           chunk: int) -> tuple[torch.Tensor, torch.Tensor]:
-    """Neighbour probes over merged records ``[B, 6, 2*chunk]`` with per-row
-    int32 scalars ``[B]``.  Returns (payload = len<<16 | dist,
-    key = local<<4 | flags, halo records 16*chunk), each ``[B, 2*chunk]``."""
+    """Neighbour probes over merged records ``[B, 6, 2*chunk]``, sorted by
+    their five key words as ``merge_sorted`` leaves them, with per-row int32
+    scalars ``[B]``.  Returns (payload = len<<16 | dist,
+    key = local<<4 | flags, halo records 16*chunk), each ``[B, 2*chunk]``.
+    The CUDA kernel composes each probe's LCP from the adjacent LCPs, which
+    equals the direct compare of ``probe_plain`` only on key-sorted
+    records."""
     _require_supported()
     B, P, n = merged.shape
     if P != 6 or n != 2 * chunk or merged.dtype != torch.int32:

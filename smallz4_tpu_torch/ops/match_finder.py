@@ -16,7 +16,12 @@ bit for bit.
 The reference runs its walk as lockstep loops over all lanes in XLA.  An
 inactive lane is frozen there, so the port runs one serial loop per lane:
 ``csrc/walk.cu`` on a CUDA tensor, ``walk_plain`` (vectorised over the lanes
-still active, 16 extension words at a time) on a CPU tensor.
+still active, 16 extension words at a time) on a CPU tensor.  The kernel
+stages, per block of 2048 searched positions, the 64 Ki positions before
+them as 16-bit back-distances (a predecessor farther than 65535 ends a walk
+just as none does), their bytes, from which it reads the grams, and the
+block's run lengths; warps take 32 positions at a time from a block
+counter, and long extensions are taken by the whole warp.
 """
 from __future__ import annotations
 
@@ -162,9 +167,10 @@ def walk(ctx, g, prev, runs, start_valid, end_valid, base: int,
          search_len: int, max_candidates: int, ext_cap: int):
     """The candidate walk of positions [base, base + search_len) of each row
     of ``ctx`` (uint8 [B, n]) with its grams ``g`` (last three zeroed),
-    predecessors ``prev`` (-1 for none) and run lengths ``runs`` (int32
-    [B, n] each) and valid ranges [start_valid, end_valid) (int32 [B]).
-    Returns lens, dists (int32) and conv (bool), each [B, search_len]."""
+    predecessors ``prev`` (-1 for none, else an earlier position) and run
+    lengths ``runs`` (int32 [B, n] each, as ``walk_inputs`` makes them) and
+    valid ranges [start_valid, end_valid) (int32 [B]).  Returns lens, dists
+    (int32) and conv (bool), each [B, search_len]."""
     _check_walk(ctx, g, prev, runs, start_valid, end_valid, base, search_len)
     if not _cuda.on_cuda(ctx):
         return walk_plain(ctx, g, prev, runs, start_valid, end_valid, base,
@@ -177,7 +183,8 @@ def walk(ctx, g, prev, runs, start_valid, end_valid, base: int,
     _cuda.launch("walk", "s4_walk", ctx.device,
                  *(a.data_ptr() for a in (ctx, g, prev, runs, start_valid,
                                           end_valid, lens, dists, conv)),
-                 B, ctx.shape[1], base, search_len, max_candidates, ext_cap)
+                 B, ctx.shape[1], base, search_len, max_candidates, ext_cap,
+                 None)
     return lens, dists, conv
 
 

@@ -40,25 +40,26 @@ def _corpus(seed, n):
     return b"".join(parts)[:n]
 
 
-def _padded():
-    data = _corpus(11, N_CHUNKS * C)
+def _padded(data=None):
+    if data is None:
+        data = _corpus(11, N_CHUNKS * C)
     padded = np.zeros(len(data) + tcm.LOOK, np.uint8)
     padded[: len(data)] = np.frombuffer(data, np.uint8)
     return data, padded
 
 
-def _chunk_buf(padded, ci):
-    return padded[ci * C: ci * C + C + tcm.LOOK]
+def _chunk_buf(padded, ci, chunk=C):
+    return padded[ci * chunk: ci * chunk + chunk + tcm.LOOK]
 
 
-def _hi(n, ci):
-    return min(C, n - fmt.BLOCK_END_NO_MATCH + 1 - ci * C)
+def _hi(n, ci, chunk=C):
+    return min(chunk, n - fmt.BLOCK_END_NO_MATCH + 1 - ci * chunk)
 
 
-def _cut(padded, ci):
+def _cut(padded, ci, chunk=C):
     """Boundary cut at the end of chunk ci-1 (halo-local coords)."""
-    pos = C - fmt.BLOCK_END_NO_MATCH
-    start = (ci - 1) * C + pos
+    pos = chunk - fmt.BLOCK_END_NO_MATCH
+    start = (ci - 1) * chunk + pos
     return tcm.pack_cut_gram(padded[start: start + 4].tobytes()), pos
 
 
@@ -293,28 +294,78 @@ def _cuda_or_skip():
     return torch.device("cuda")
 
 
-def _plain_stages(B=4, cut_rows=(0,)):
-    """CPU plain-path intermediates of a B-chunk group, for the kernels."""
-    data, padded = _padded()
+def _plain_stages(B=4, cut_rows=(0,), data=None, chunk=C, device="cpu"):
+    """Intermediates of a B-chunk group (chunks 1..B of ``data``, chunk 0
+    the halo) for the kernels: merged records sorted by their keys, and the
+    per-row cut gram, cut position, match limit and candidate bound.  The
+    sort and merge run on ``device``."""
+    data, padded = _padded(data)
     n = len(data)
-    bufs = torch.from_numpy(np.stack([_chunk_buf(padded, c)
+    bufs = torch.from_numpy(np.stack([_chunk_buf(padded, c, chunk)
                                       for c in range(1, B + 1)]))
-    cand = torch.tensor([_hi(n, c) for c in range(1, B + 1)],
+    cand = torch.tensor([_hi(n, c, chunk) for c in range(1, B + 1)],
                         dtype=torch.int32)
-    lim = torch.tensor([n - fmt.BLOCK_END_LITERALS - c * C
+    lim = torch.tensor([n - fmt.BLOCK_END_LITERALS - c * chunk
                         for c in range(1, B + 1)], dtype=torch.int32)
-    cg, cp = _cut(padded, 1)
+    cg, cp = _cut(padded, 1, chunk)
     gram = torch.tensor([cg if r in cut_rows else 0 for r in range(B)],
                         dtype=torch.int32)
     pos = torch.tensor([cp if r in cut_rows else -1 for r in range(B)],
                        dtype=torch.int32)
-    halo = tcm.sort_chunk(torch.from_numpy(_chunk_buf(padded, 0)), 0, C,
-                          chunk=C)
-    cur = tcm.sort_chunk(bufs, 0, cand, chunk=C)
+    halo = tcm.sort_chunk(torch.from_numpy(_chunk_buf(padded, 0, chunk))
+                          .to(device), 0, chunk, chunk=chunk)
+    cur = tcm.sort_chunk(bufs.to(device), 0, cand.to(device), chunk=chunk)
     halos = torch.cat([halo[None], cur[:-1]])
-    merged = tcm.sortnet.merge_sorted(tcm._merged_input(halos, cur, C),
+    merged = tcm.sortnet.merge_sorted(tcm._merged_input(halos, cur, chunk),
                                       n_keys=6, unique=True)
-    return merged, gram, pos, lim, cand
+    return (merged,) + tuple(t.to(device) for t in (gram, pos, lim, cand))
+
+
+def _few_symbols(n=N_CHUNKS * C):
+    """Two symbols with long periodic stretches: many records tie on the
+    whole 20-byte key."""
+    rng = np.random.default_rng(5)
+    x = rng.integers(0, 2, n, dtype=np.uint8)
+    x[n // 4: n // 2] = np.tile(np.array([0, 1, 1], np.uint8), n)[:n // 4]
+    x[n // 2: n // 2 + n // 8] = 1
+    return x.tobytes()
+
+
+STAGE_DATA = {"corpus": None, "few_symbols": _few_symbols()}
+
+
+@pytest.mark.parametrize("data", sorted(STAGE_DATA))
+def test_probe_lcp_composed_equals_direct(data):
+    """On merged records sorted by their 20-byte key, the LCP with the
+    record at +-k (every offset of PROBES) is the least adjacent LCP over
+    the window between them: what the CUDA probe computes from its
+    min-table equals probe_plain's direct compare."""
+    merged = _plain_stages(data=STAGE_DATA[data])[0]
+    n = merged.shape[-1]
+    w = [merged[:, i] for i in range(5)]
+    adj = tcm._lcp_be([x[:, :-1] ^ x[:, 1:] for x in w])
+    ties = 0
+    for k in tcm.PROBES:
+        for sgn in (1, -1):
+            # slots s with s + sgn*k in range; window a[min(s, s+sgn*k) ..)
+            slots = torch.arange(k, n) if sgn < 0 else torch.arange(n - k)
+            nb = slots + sgn * k
+            direct = tcm._lcp_be([x[:, slots] ^ x[:, nb] for x in w])
+            composed = adj.unfold(1, k, 1).min(-1).values
+            assert torch.equal(composed, direct), (k, sgn)
+        ties += int((direct == tcm.KEY_REACH).sum())
+    assert ties > 0  # the windows cover groups of equal keys
+
+
+@pytest.mark.parametrize("data", sorted(STAGE_DATA))
+def test_merged_combo_bit29_clear(data):
+    """The merged records' combo is invalid bit 31 | pos bits 0-16: bit 29,
+    where the reference puts a record's own cut test, and bit 17, where the
+    CUDA probe's derived word marks a record that is no candidate, are
+    clear."""
+    merged = _plain_stages(data=STAGE_DATA[data])[0]
+    assert not ((merged[:, 5] >> 29) & 1).any()
+    assert ((merged[:, 5] & ~(tcm.INVALID_BIT | tcm.POS_MASK)) == 0).all()
 
 
 @pytest.mark.cuda
@@ -334,6 +385,57 @@ def test_probe_compact_pack_kernels_equal_plain_cuda():
     torch.cuda.synchronize()
     for g, w in zip(got, want):
         assert torch.equal(g, w)
+
+
+def _probe_equals_plain(stages):
+    merged, gram, pos, lim, _ = stages
+    got = tcm.probe(merged, gram, pos, lim, merged.shape[-1] // 2)
+    want = tcm.probe_plain(merged, gram, pos, lim, merged.shape[-1] // 2)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+# far probes after the near 1..8: none, one (not a power of two), and the
+# largest halo MAX_FAR_PROBE
+FAR_SETS = {"near_only": (), "one_far": (100,),
+            "far_1024": (12, 16, 160, tcm.MAX_FAR_PROBE)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("far", sorted(FAR_SETS))
+def test_probe_kernel_probe_sets_cuda(monkeypatch, far):
+    dev = _cuda_or_skip()
+    monkeypatch.setattr(tcm, "PROBES", tcm.NEAR_PROBES + FAR_SETS[far])
+    _probe_equals_plain(_plain_stages(device=dev))
+
+
+# constant bytes (every key LCP 20), few symbols (ties), one row, every
+# row cut
+PROBE_CASES = {"constant": dict(data=b"a" * (N_CHUNKS * C)),
+               "few_symbols": dict(data=_few_symbols()),
+               "one_row": dict(B=1),
+               "all_cut": dict(cut_rows=range(4))}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(PROBE_CASES))
+def test_probe_kernel_inputs_cuda(case):
+    dev = _cuda_or_skip()
+    _probe_equals_plain(_plain_stages(device=dev, **PROBE_CASES[case]))
+
+
+@pytest.mark.cuda
+def test_probe_kernel_production_shape_cuda():
+    """[8, 6, 131072]: eight 64 Ki chunks of make_corpus, sorted and merged
+    on the card, a live cut in row 0."""
+    dev = _cuda_or_skip()
+    from bench import make_corpus
+
+    stages = _plain_stages(B=8, data=make_corpus(9 * tcm.CHUNK),
+                           chunk=tcm.CHUNK, device=dev)
+    assert stages[0].shape == (8, 6, 2 * tcm.CHUNK)
+    _probe_equals_plain(stages)
 
 
 @pytest.mark.cuda

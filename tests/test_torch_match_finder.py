@@ -12,6 +12,7 @@ import numpy as np
 import pytest
 import torch
 
+from smallz4_tpu_torch import format as fmt
 from smallz4_tpu_torch.ops import _cuda, grams
 from smallz4_tpu_torch.ops import match_finder as tmf
 
@@ -173,6 +174,58 @@ def _walk_case(B, n, seed):
     return x, sv, ev
 
 
+def _far_repeats(n=fmt.MAX_DISTANCE + 5000):
+    """One row of random bytes with 48-byte repeats exactly 65535, 65534
+    and 65536 (one past the window) apart, and the base and length of a
+    search over the second copies."""
+    rng = np.random.default_rng(8)
+    x = rng.integers(0, 256, (1, n), dtype=np.uint8)
+    for at, d in ((1000, fmt.MAX_DISTANCE), (2000, fmt.MAX_DISTANCE - 1),
+                  (3000, fmt.MAX_DISTANCE + 1)):
+        x[0, at + d: at + d + 48] = x[0, at: at + 48]
+    sv = np.zeros(1, np.int32)
+    ev = np.full(1, n, np.int32)
+    return x, sv, ev, fmt.MAX_DISTANCE, n - fmt.MAX_DISTANCE
+
+
+def _back_distance_form(prev):
+    """prev as the walk kernel stages it: -1 where the predecessor is none
+    or farther back than 65535."""
+    q = torch.arange(prev.shape[-1], dtype=torch.int32, device=prev.device)
+    return torch.where(q - prev > fmt.MAX_DISTANCE, -1, prev)
+
+
+# (B, n, base) of _walk_case rows, or "far" for _far_repeats
+BACK_DISTANCE_CASES = [(2, 3000, 0), (3, 9000, 100), "far"]
+
+
+@pytest.mark.parametrize("case", BACK_DISTANCE_CASES, ids=str)
+def test_walk_back_distance_prev_is_exact(case):
+    """The walk kernel's 16-bit back-distances make a predecessor farther
+    than 65535 back into -1: walk_plain gives identical lens, dists and
+    conv with that prev."""
+    if case == "far":
+        x, sv, ev, base, search_len = _far_repeats()
+    else:
+        B, n, base = case
+        x, sv, ev = _walk_case(B, n, n)
+        search_len = n - base
+    x, sv, ev = (torch.from_numpy(a) for a in (x, sv, ev))
+    cut = torch.arange(x.shape[0]) == 0
+    g, prev, runs = tmf.walk_inputs(x, sv, ev, cut, base)
+    args = (x, g, None, runs, sv, ev, base, search_len, 64, 512)
+    want = tmf.walk_plain(*args[:2], prev, *args[3:])
+    short = _back_distance_form(prev)
+    got = tmf.walk_plain(*args[:2], short, *args[3:])
+    for k, w in zip(got, want):
+        assert torch.equal(k, w)
+    if case == "far":  # the window's edge is exercised on both sides
+        assert (short != prev).any()
+        assert {fmt.MAX_DISTANCE, fmt.MAX_DISTANCE - 1} <= set(
+            want[1].unique().tolist())
+        assert fmt.MAX_DISTANCE + 1 not in want[1].unique().tolist()
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("B,n,base", [(1, 1, 0), (2, 3, 0), (3, 32767, 100),
                                       (2, 32768, 0),
@@ -189,5 +242,46 @@ def test_walk_kernel_equals_plain_cuda(B, n, base):
     got = tmf.walk(*args)
     torch.cuda.synchronize()
     assert _cuda.LAUNCHES["walk"] == before + 1
+    for k, w in zip(got, tmf.walk_plain(*args)):
+        assert torch.equal(k, w)
+
+
+# (rows, base, search_len, max_candidates, ext_cap): rows "few" are
+# _walk_case rows of n bytes, "zeros" one zero row (distance-1 runs, so
+# rejects at pos + best fall outside the staged bytes), "far" _far_repeats
+WALK_CASES = [
+    (("zeros", 1, tmf.SEG_BUF), tmf.HALO, tmf.SEG, 64, 512),
+    (("far", 1, None), None, None, 64, 512),
+    (("few", 2, 32768), 0, 32768, 1, 512),
+    (("few", 2, 32768), 0, 32768, 64, 4),
+    (("few", 2, 32768), 0, 32768, 64, 2048),
+    (("few", 2, 20000), 100, 5000, 64, 512),
+    (("few", 1, tmf.SEG_BUF), tmf.HALO, 65535, 64, 512),
+    (("few", 1, 140000), 0, 140000, 16, 512),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,base,search_len,max_candidates,ext_cap",
+                         WALK_CASES, ids=str)
+def test_walk_kernel_cases_cuda(rows, base, search_len, max_candidates,
+                                ext_cap):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    kind, B, n = rows
+    if kind == "far":
+        x, sv, ev, base, search_len = _far_repeats()
+    elif kind == "zeros":
+        x = np.zeros((B, n), np.uint8)
+        sv, ev = np.zeros(B, np.int32), np.full(B, n, np.int32)
+    else:
+        x, sv, ev = _walk_case(B, n, n + 1)
+    x, sv, ev = (torch.from_numpy(a).cuda() for a in (x, sv, ev))
+    cut = torch.arange(B, device="cuda") == 0
+    g, prev, runs = tmf.walk_inputs(x, sv, ev, cut, base)
+    args = (x, g, prev, runs, sv, ev, base, search_len, max_candidates,
+            ext_cap)
+    got = tmf.walk(*args)
+    torch.cuda.synchronize()
     for k, w in zip(got, tmf.walk_plain(*args)):
         assert torch.equal(k, w)
