@@ -12,19 +12,28 @@ network and no arguments.  Phases:
   2. chunk-engine kernels: on one full group (64 chunks x 64 Ki positions)
      of the committed real-data fixture, each CUDA kernel against its plain
      PyTorch version on the card, exact equality, both timed with CUDA
-     events; the sort's and the merge's achieved GB/s over the bytes their
-     passes move, the probe's over the tiles and halos it stages; plus the
-     device time of one whole match_chunks group;
+     events, the kernel also by torch.profiler (its device time and device
+     launches per call); the chain at [64, 65536] with 16 steps, whose plain
+     version is the tensor loop it replaces; the sort's and the merge's
+     achieved GB/s over the bytes their passes move, the probe's over the
+     tiles and halos it stages; plus the device time of one whole
+     match_chunks group;
   2b. sort-engine kernels: on one full match_segments dispatch (8 segments
      of the fixture, a live boundary cut in row 0, one padding row), the
      record sort at [8, 5, 2^17] with two keys, the neighbour scan (with the
-     unsort), the chain and the run lengths against their plain versions;
-     plus the device time of one whole dispatch;
-  2c. walk-engine kernels: on the same dispatch, gram_hash and the walk
-     (max_candidates=64, ext_cap=512) against their plain versions; the
-     walk's achieved GB/s over its staged bytes and its reads outside them
-     (counted by one more launch with the kernel's stats); plus the device
-     time of one whole walk match_segments dispatch;
+     unsort), the chain (14 steps) and the run lengths against their plain
+     versions; plus the device time of one whole dispatch;
+  2c. walk-engine kernels: on the same dispatch, the run lengths at
+     [8, 133119], gram_hash and the walk (max_candidates=64, ext_cap=512)
+     against their plain versions; the walk's achieved GB/s over its staged
+     bytes and its reads outside them (counted by one more launch with the
+     kernel's stats); plus the device time of one whole walk match_segments
+     dispatch;
+  2d. worst cases: the run lengths on rows that are one run and on runs
+     that cross every tile edge, the chain on rows of distance 1 with long
+     lengths, at the production shapes, exact and timed; a chain row longer
+     than the one-launch path takes chain_wide; the chain and the run
+     lengths must be one device launch a call at the production shapes;
   3. chunk engine end to end, with SMALLZ4_TPU_CPU_ASSIST=0 so every block
      goes through the device: compress(data, 9) on the 10 MB fixture
      (modern and legacy) and on make_corpus(8 MiB) must equal
@@ -40,8 +49,9 @@ network and no arguments.  Phases:
      walk-engine stream must round-trip.
 
 Prints a {"kernels": [...]} JSON line (each kernel's launches on its main
-path, error, kernel / plain / library time and bound; run_lengths counts
-its sort-engine launches), the nvidia-smi line,
+path, error, kernel / plain / library time and bound; the chain once for
+the chunk engine and once for the sort engine, the run lengths once for the
+sort engine and once for the walk engine), the nvidia-smi line,
 and as the last line {"ok": true, "device": {...}}.  Any failure raises
 (exit != 0) before that line.
 """
@@ -59,30 +69,37 @@ import time
 ROOT = pathlib.Path(__file__).resolve().parent
 FIXTURE = ROOT / "benchdata" / "realcorpus.bin.xz"
 
-KERNELS = [  # (counter, source, replaced TPU kernel)
+KERNELS = [  # (counter, source, replaced TPU kernel, engine path)
     ("sort_records", "smallz4_tpu_torch/csrc/sortnet.cu",
-     "smallz4_tpu/ops/sortnet.py:164"),
+     "smallz4_tpu/ops/sortnet.py:164", "chunk"),
     ("merge_sorted", "smallz4_tpu_torch/csrc/sortnet.cu",
-     "smallz4_tpu/ops/sortnet.py:276"),
+     "smallz4_tpu/ops/sortnet.py:276", "chunk"),
     ("probe", "smallz4_tpu_torch/csrc/probe.cu",
-     "smallz4_tpu/ops/chunkmatch.py:199"),
+     "smallz4_tpu/ops/chunkmatch.py:199", "chunk"),
     ("compact", "smallz4_tpu_torch/csrc/compact.cu",
-     "smallz4_tpu/ops/chunkmatch.py:396"),
-    ("pack", "smallz4_tpu_torch/csrc/pack.cu",
-     "smallz4_tpu/ops/chunkmatch.py:428"),
-    ("scan", "smallz4_tpu_torch/csrc/sortmatch.cu",
-     "smallz4_tpu/ops/sortmatch.py:102"),
+     "smallz4_tpu/ops/chunkmatch.py:396", "chunk"),
+    # the reference's chunk engine runs this doubling as XLA passes
+    # (smallz4_tpu/ops/chunkmatch.py:686-695), the body of _chain_kernel
     ("chain", "smallz4_tpu_torch/csrc/sortmatch.cu",
-     "smallz4_tpu/ops/sortmatch.py:159"),
+     "smallz4_tpu/ops/sortmatch.py:159", "chunk"),
+    ("pack", "smallz4_tpu_torch/csrc/pack.cu",
+     "smallz4_tpu/ops/chunkmatch.py:428", "chunk"),
+    ("scan", "smallz4_tpu_torch/csrc/sortmatch.cu",
+     "smallz4_tpu/ops/sortmatch.py:102", "sort"),
+    ("chain", "smallz4_tpu_torch/csrc/sortmatch.cu",
+     "smallz4_tpu/ops/sortmatch.py:159", "sort"),
     ("run_lengths", "smallz4_tpu_torch/csrc/runlen.cu",
-     "smallz4_tpu/ops/pallas_kernels.py:145"),
+     "smallz4_tpu/ops/pallas_kernels.py:145", "sort"),
+    ("run_lengths", "smallz4_tpu_torch/csrc/runlen.cu",
+     "smallz4_tpu/ops/pallas_kernels.py:145", "walk"),
     ("gram_hash", "smallz4_tpu_torch/csrc/gramhash.cu",
-     "smallz4_tpu/ops/pallas_kernels.py:49"),
+     "smallz4_tpu/ops/pallas_kernels.py:49", "walk"),
     # XLA in the reference (its lockstep while loops), not Pallas
     ("walk", "smallz4_tpu_torch/csrc/walk.cu",
-     "smallz4_tpu/ops/match_finder.py:75"),
+     "smallz4_tpu/ops/match_finder.py:75", "walk"),
 ]
-CHUNK_KERNELS = ("sort_records", "merge_sorted", "probe", "compact", "pack")
+CHUNK_KERNELS = ("sort_records", "merge_sorted", "probe", "compact", "chain",
+                 "pack")
 SORT_KERNELS = ("sort_records", "scan", "chain", "run_lengths")
 WALK_KERNELS = ("gram_hash", "walk", "run_lengths")
 # integer operations of one walk round of an active lane (activity test,
@@ -134,6 +151,43 @@ def cuda_ms(torch, fn, reps: int) -> float:
     return e0.elapsed_time(e1) / reps
 
 
+def device_ms(torch, fn, reps: int) -> tuple[float, float]:
+    """(device time in ms, device launches) per call of fn(), from a
+    torch.profiler trace of reps calls after one warm-up: the trace's raw
+    kernel records (not copies, fills or the window's own annotation) that
+    start inside the calls' time window, one per correlation id, their own
+    intervals summed, without the host's enqueue.  A trace that lost
+    records holds no whole number of launches a call; traces are taken
+    again, up to six, until one does, else the fullest one counts."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    fn()
+    torch.cuda.synchronize()
+    best: dict = {}
+    for _ in range(6):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            with record_function("timed calls"):
+                for _ in range(reps):
+                    fn()
+                torch.cuda.synchronize()
+        events = prof.profiler.kineto_results.events()
+        on_card = [e.device_type() == torch.autograd.DeviceType.CUDA
+                   for e in events]
+        window = next(e for e, card in zip(events, on_card)
+                      if not card and e.name() == "timed calls")
+        kernels = {e.correlation_id(): e.end_ns() - e.start_ns()
+                   for e, card in zip(events, on_card)
+                   if card and e.name() != "timed calls"
+                   and not e.name().startswith(("Memcpy", "Memset"))
+                   and window.start_ns() <= e.start_ns() <= window.end_ns()}
+        if len(kernels) > len(best):
+            best = kernels
+        if best and len(best) % reps == 0:
+            break
+    return sum(best.values()) / 1e6 / reps, len(best) / reps
+
+
 def max_err(torch, got, want) -> int:
     """Largest absolute difference of two integer results (tuples too)."""
     if isinstance(got, tuple):
@@ -164,16 +218,19 @@ def bound(moved_bytes: int, ops: float) -> tuple[float, str]:
 def check_kernels(torch, cases, phase: str, shape_note: str) -> dict:
     """cases: name -> (kernel fn, plain fn, input tensors, op count).
     Each kernel must equal its plain version exactly (integers:
-    tolerance 0); both are timed."""
+    tolerance 0); both are timed with CUDA events, the kernel also by the
+    profiler (device time and device launches per call)."""
     results = {}
     for name, (kern, plain, inputs, ops) in cases.items():
         got = kern()
         err = max_err(torch, got, plain())
         ms = cuda_ms(torch, kern, 10)
         plain_ms = cuda_ms(torch, plain, 3)
+        dev_ms, per_call = device_ms(torch, kern, 5)
         bound_ms, bound_by = bound(nbytes(*inputs) + nbytes(got), ops)
         log(f"[{phase}] {name:13s} max_abs_err {err} (tolerance 0: exact "
-            f"integers)  kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  bound "
+            f"integers)  kernel {ms:.4f} ms (device {dev_ms:.4f} ms, "
+            f"{per_call:g} launches a call)  plain {plain_ms:.4f} ms  bound "
             f"{bound_ms * 1e3:.2f} us ({bound_by})  ({shape_note})")
         if err != 0:
             raise AssertionError(f"{name}: kernel != plain (max err {err})")
@@ -181,8 +238,20 @@ def check_kernels(torch, cases, phase: str, shape_note: str) -> dict:
         # sort-engine shape gets its library time in phase 2b)
         results[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                          "bound_ms": bound_ms, "bound_by": bound_by,
-                         "library_ms": None}
+                         "library_ms": None, "device_ms": dev_ms,
+                         "device_launches_per_call": per_call}
     return results
+
+
+def require_one_launch(results: dict, names, where: str) -> None:
+    """The redesigned kernels run as one device launch a call."""
+    for name in names:
+        per_call = results[name]["device_launches_per_call"]
+        log(f"[{where}] {name:13s} {per_call:g} device launch(es) a call "
+            f"(torch.profiler)")
+        if per_call != 1:
+            raise AssertionError(f"{name}: {per_call} device launches a "
+                                 f"call, not 1")
 
 
 def log_sort_rate(_cuda, phase: str, name: str, res: dict, x,
@@ -245,6 +314,54 @@ def walk_stage_stats(torch, _cuda, wargs, want) -> tuple[int, int, int]:
                              f"differ from the wrapper's")
     staged, far = (int(v) for v in stats.tolist())
     return staged, far, nbytes(lens, dists, conv)
+
+
+def worst_cases(torch, np, _cuda, sm, pk, dev, chunk_shape, sort_shape,
+                walk_shape) -> None:
+    """Phase 2d: the run lengths on rows that are one run and on
+    alternating runs of a tile's length, each across a tile edge, at the
+    sort and walk shapes; the chain on rows of distance 1 and length 20
+    (every claim grows to its row's end) at the chunk and sort shapes; and
+    a row longer than the one-launch chain path.  Exact, and timed."""
+    tile = _cuda.lib().s4_run_lengths_tile()
+    cases = {}
+    for shape in (sort_shape, walk_shape):
+        alt = (np.arange(shape[1]) + tile // 2) // tile % 2
+        for kind, x in (("one run", np.full(shape, 7, np.uint8)),
+                        ("runs across tile edges",
+                         np.tile(alt.astype(np.uint8), (shape[0], 1)))):
+            xd = torch.from_numpy(x).to(dev)
+            cases[f"run_lengths {list(shape)} {kind}"] = (
+                lambda xd=xd: pk.run_lengths(xd),
+                lambda xd=xd: pk.run_lengths_plain(xd))
+    for shape, steps in ((chunk_shape, 16), (sort_shape, 14)):
+        lens = torch.full(shape, 20, dtype=torch.int32, device=dev)
+        ones = torch.ones(shape, dtype=torch.int32, device=dev)
+        cases[f"chain {list(shape)} steps {steps} dist 1, len 20"] = (
+            lambda lens=lens, ones=ones, steps=steps: sm.chain(lens, ones,
+                                                               steps),
+            lambda lens=lens, ones=ones, steps=steps: sm.chain_plain(
+                lens, ones, steps))
+    for name, (kern, plain) in cases.items():
+        err = max_err(torch, kern(), plain())
+        ms = cuda_ms(torch, kern, 10)
+        dev_ms, per_call = device_ms(torch, kern, 5)
+        log(f"[2d] {name}: max_abs_err {err}  kernel {ms:.4f} ms (device "
+            f"{dev_ms:.4f} ms, {per_call:g} launches a call)")
+        if err != 0 or per_call != 1:
+            raise AssertionError(f"{name}: error {err}, {per_call} launches")
+    n = _cuda.lib().s4_chain_row_max() + 7
+    rng = np.random.default_rng(6)
+    lens, dists = (torch.from_numpy(rng.integers(0, 5, (2, n), dtype=np.int32)
+                                    ).to(dev) for _ in range(2))
+    before = dict(_cuda.LAUNCHES)
+    err = max_err(torch, sm.chain(lens, dists, 14),
+                  sm.chain_plain(lens, dists, 14))
+    took = {k: _cuda.LAUNCHES[k] - before[k] for k in ("chain", "chain_wide")}
+    log(f"[2d] chain [2, {n}] steps 14 (past the one-launch row of "
+        f"{n - 7}): max_abs_err {err}, launches {took}")
+    if err != 0 or took != {"chain": 0, "chain_wide": 1}:
+        raise AssertionError(f"wide chain: error {err}, launches {took}")
 
 
 def group_inputs(np, cm, fmt, data: bytes, start: int, bs: int):
@@ -374,6 +491,8 @@ def main() -> int:
     merged = sortnet.merge_sorted(x, n_keys=6, unique=True)
     p_pay, p_key = cm.probe(merged, cg, cp, lim_d, CH)
     s_key, s_pay = cm.compact(p_key, p_pay, CH)
+    # the chain's input in _claims: the claims in position order
+    c_lens, c_dists = (s_pay >> 16) & 0xFFFF, s_pay & 0xFFFF
     claims = cm._claims(s_key, s_pay, cp, torch.zeros_like(cand_d), cand_d,
                         lim_d, CH)
     packed = cm.pack_results(*claims, chunk=CH)
@@ -397,11 +516,16 @@ def main() -> int:
         "compact": (lambda: cm.compact(p_key, p_pay, CH),
                     lambda: cm.compact_plain(p_key, p_pay, CH),
                     (p_key, p_pay), 2 * n_rec * 3),
+        # plain: the tensor loop the kernel replaces in _claims
+        "chain": (lambda: sm.chain(c_lens, c_dists, cm.CHAIN_STEPS),
+                  lambda: sm.chain_plain(c_lens, c_dists, cm.CHAIN_STEPS),
+                  (c_lens, c_dists), n_rec * cm.CHAIN_STEPS * 6),
         "pack": (lambda: cm.pack_results(*claims, chunk=CH),
                  lambda: cm.pack_results_plain(*claims, chunk=CH),
                  tuple(claims), n_rec * 10),
     }
     results = check_kernels(torch, cases, "2", f"{G} x {CH} positions")
+    require_one_launch(results, ("chain",), "2")
     log_sort_rate(_cuda, "2", "sort_records", results["sort_records"], recs,
                   False)
     log_sort_rate(_cuda, "2", "merge_sorted", results["merge_sorted"], x,
@@ -451,10 +575,13 @@ def main() -> int:
     }
     sresults = check_kernels(torch, scases, "2b",
                              f"{B} x {n} records, one dispatch")
+    require_one_launch(sresults, ("chain", "run_lengths"), "2b")
     log_sort_rate(_cuda, "2b", "sort_records", sresults["sort_records"], rec,
                   False)
-    results["sort_records"]["sort_engine"] = sresults.pop("sort_records")
-    results.update(sresults)
+    results = {(k, "chunk"): v for k, v in results.items()}
+    results["sort_records", "chunk"]["sort_engine"] = \
+        sresults.pop("sort_records")
+    results.update({(k, "sort"): v for k, v in sresults.items()})
 
     # library yardstick of the 2-key sort: one stable torch.sort of the two
     # key words packed into int64 (unsigned order), then a gather of the
@@ -467,7 +594,7 @@ def main() -> int:
 
     lib_ms = cuda_ms(torch, packed_sort, 10)
     lib_diff = int((packed_sort() != srec).any(1).sum())
-    results["sort_records"]["sort_engine"]["library_ms"] = lib_ms
+    results["sort_records", "chunk"]["sort_engine"]["library_ms"] = lib_ms
     log(f"[2b] library yardstick: stable torch.sort of packed int64 keys + "
         f"gather {lib_ms:.4f} ms; records placed unlike the kernel (ties of "
         f"both key words): {lib_diff} of {B * n}")
@@ -492,6 +619,9 @@ def main() -> int:
         f"{work['ext_words']} extension words; converged "
         f"{float(wconv.float().mean()):.4%} of its {wconv.numel()} lanes")
     wcases = {
+        "run_lengths": (lambda: pk.run_lengths(sbufs),
+                        lambda: pk.run_lengths_plain(sbufs), (sbufs,),
+                        B * mf.SEG_BUF * 15),
         "gram_hash": (lambda: pk.gram_hash(sbufs),
                       lambda: pk.gram_hash_plain(sbufs), (sbufs,),
                       B * mf.SEG_BUF * 8),
@@ -500,15 +630,17 @@ def main() -> int:
                  work["hops"] * WALK_OPS_PER_HOP
                  + work["ext_words"] * WALK_OPS_PER_WORD),
     }
-    results.update(check_kernels(torch, wcases, "2c",
-                                 f"{B} x {mf.SEG_BUF} bytes, one dispatch, "
-                                 f"max_candidates={wk}"))
+    wresults = check_kernels(torch, wcases, "2c",
+                             f"{B} x {mf.SEG_BUF} bytes, one dispatch, "
+                             f"max_candidates={wk}")
+    require_one_launch(wresults, ("run_lengths",), "2c")
+    results.update({(k, "walk"): v for k, v in wresults.items()})
     staged, far, out_bytes = walk_stage_stats(torch, _cuda, wargs,
                                               mf.walk(*wargs))
     log(f"[2c] walk          staged {staged} bytes (predecessor windows "
         f"read as int32, bytes, run lengths), {far} reads outside the "
         f"staged window")
-    log_floor_rate("2c", "walk", results["walk"],
+    log_floor_rate("2c", "walk", results["walk", "walk"],
                    staged + 32 * far + out_bytes,
                    "staged + one 32-byte sector a far read + outputs")
 
@@ -520,14 +652,19 @@ def main() -> int:
         f"searched positions): {wdisp_ms:.3f} ms device = "
         f"{searched / wdisp_ms / 1e3:.2f} MB/s device-only match rate")
 
+    # -- phase 2d: worst cases of the chain and the run lengths -----------
+    worst_cases(torch, np, _cuda, sm, pk, dev, (G, CH), (B, n),
+                (B, mf.SEG_BUF))
+
     # -- phase 3: chunk engine end to end ---------------------------------
     def chunk_expected(data, block):
         groups = sum(-(-(min(s + block, len(data)) - s) // (G * CH))
                      for s in range(0, len(data), block))
         blocks = -(-len(data) // block)
-        return {k: 0 for k in _cuda.LAUNCHES} | {
-            "sort_records": groups + blocks, "merge_sorted": groups,
-            "probe": groups, "compact": groups, "pack": groups}
+        # one launch of each a group; the sort also sorts each block's halo
+        return ({k: 0 for k in _cuda.LAUNCHES}
+                | {k: groups for k in CHUNK_KERNELS}
+                | {"sort_records": groups + blocks})
 
     launches = None
     for name, data, legacy in (
@@ -591,21 +728,18 @@ def main() -> int:
     log(f"[3c] walk engine parity=False (4 MiB blocks): {len(raw)} B, "
         f"round-trips")
 
-    results["sort_records"]["sort_engine"]["launches"] = \
+    results["sort_records", "chunk"]["sort_engine"]["launches"] = \
         sort_launches["sort_records"]
-
-    def path_launches(name):
-        if name in CHUNK_KERNELS:
-            return launches[name]
-        return (walk_launches if name in ("gram_hash", "walk")
-                else sort_launches)[name]
-
+    path_launches = {"chunk": launches, "sort": sort_launches,
+                     "walk": walk_launches}
     kernels = [{"name": name, "route": "cuda", "source": src,
-                "replaces": rep, "launches": path_launches(name),
-                **results[name]} for name, src, rep in KERNELS]
+                "replaces": rep, "path": path,
+                "launches": path_launches[path][name],
+                **results[name, path]} for name, src, rep, path in KERNELS]
     for k in kernels:
         if k["launches"] < 1:
-            raise AssertionError(f"{k['name']} never launched on its path")
+            raise AssertionError(f"{k['name']} never launched on the "
+                                 f"{k['path']} engine's path")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -27,15 +27,42 @@
 // scattered.
 //
 // Chain.  Position-order lengths and distances [B][n]: `steps` doubling
-// steps len[p] = max(len[p], s + len[p+s]) where dist[p] == dist[p+s] >= 1
-// and len[p] >= s, s = 1, 2, 4, ...  Each step reads the previous step's
-// lengths (the reference rebinds the whole array per step), so an in-place
-// pass would read half-updated values.  Design: one launch per step,
-// ping-pong between the output and a scratch buffer; 12 bytes per record per
-// step, memory bound.
+// steps len[p] = max(len[p], s + len[p+s]) where p + s < n, dist[p] ==
+// dist[p+s] >= 1 and len[p] >= s, s = 1, 2, 4, ...  Each step reads the
+// previous step's lengths (the reference rebinds the whole array per step);
+// a step with s >= n changes nothing and is skipped.
+//
+// Bound: one read of lens and dists and one write of the result, 12 bytes
+// a position (3.76 us at [8, 131072] and 15.0 us at [64, 65536] on
+// 3.35 TB/s).  A launch per step streams the row through L2 once a step,
+// so the design keeps a row on chip for all its steps, in one launch: a
+// row is split over a thread-block cluster of C <= 8 blocks (the portable
+// size; 16-block clusters do not all fit on the card at once), each
+// holding a slice of L = 2^k <= 16,384 positions in shared memory: its
+// distances and two length buffers (192 KiB at L = 16,384).  Slices are as
+// large as they go, since a row takes C SMs and the 64 rows of a chunk
+// group then run in two waves.  Step k reads buffer k & 1 and writes
+// buffer ~k & 1, from its own slice or a peer's through distributed shared
+// memory, so one cluster barrier a step orders it (no thread sees a
+// half-updated step).  A thread owns groups of 4 consecutive positions,
+// 1,024 groups apart, and keeps their lengths, their distances and the
+// longest length among their positions that may grow (dist >= 1) in
+// registers.  A group reads its neighbour group (16 bytes of each plane)
+// only when that length is at least s, and stores its lengths only where
+// they differ from what the buffer already holds (the lengths of two
+// steps back; lengths only grow).  Positions past n hold dist 0, so the
+// test dist[p] == dist[p+s] >= 1 also covers p + s < n.  What remains is
+// a few microseconds a step: the SM's instruction and shared-memory rate
+// over the slice's active groups, then the cluster barrier.  Rows longer
+// than 131,072 take s4_chain_wide: one launch a step, ping-pong between
+// the output and a scratch buffer.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <stdint.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -45,7 +72,11 @@ constexpr int N_PROBES = 14;
 constexpr int MAX_DISTANCE = 65535;
 constexpr int EXT_REACH = 12;
 constexpr uint32_t POS_MASK = (1u << 30) - 1;
-constexpr int CHAIN_THREADS = 256;
+constexpr int STEP_THREADS = 256;     // s4_chain_wide
+constexpr int CHAIN_THREADS = 1024;   // s4_chain: one block a slice
+constexpr int CHAIN_SLICE = 16384;    // most positions a block holds
+constexpr int CHAIN_CLUSTER = 8;      // most blocks a row (portable)
+constexpr int CHAIN_ROW_MAX = CHAIN_CLUSTER * CHAIN_SLICE;
 
 // equal leading bytes of a little-endian xor word: its trailing zero bytes,
 // 4 when the words are equal (__clz(0) == 32)
@@ -126,10 +157,159 @@ __global__ void chain_step_kernel(const int32_t* __restrict__ len_in,
   int ln = len_in[i];
   const int d = dist[i];
   if (p + s < n && d >= 1 && ln >= s && dist[i + s] == d) {
-    const int ext = s + len_in[i + s];
+    const int ext = (int)((unsigned)s + (unsigned)len_in[i + s]);
     ln = ext > ln ? ext : ln;
   }
   len_out[i] = ln;
+}
+
+__device__ __forceinline__ int4 load4(const int32_t* row, int p, int n,
+                                      bool vec) {
+  if (vec && p + 4 <= n) return *reinterpret_cast<const int4*>(row + p);
+  return make_int4(p < n ? row[p] : 0, p + 1 < n ? row[p + 1] : 0,
+                   p + 2 < n ? row[p + 2] : 0, p + 3 < n ? row[p + 3] : 0);
+}
+
+__device__ __forceinline__ int grow(int l, int d, int nl, int nd, int s) {
+  const int ext = (int)((unsigned)s + (unsigned)nl);  // wraps like int32
+  return d >= 1 && l >= s && nd == d ? max(l, ext) : l;
+}
+
+// the longest length of a group's positions that may grow (dist >= 1)
+__device__ __forceinline__ int may_grow(int4 l, int4 d) {
+  return max(max(d.x >= 1 ? l.x : INT_MIN, d.y >= 1 ? l.y : INT_MIN),
+             max(d.z >= 1 ? l.z : INT_MIN, d.w >= 1 ? l.w : INT_MIN));
+}
+
+// One row a cluster, one slice of 4 << log_gl positions a block; G groups
+// of 4 positions a thread.  Shared memory: dist, length buffers 0 and 1,
+// each 1 << log_gl int4.
+template <int G>
+__global__ void __launch_bounds__(CHAIN_THREADS, 1)
+chain_cluster_kernel(const int32_t* __restrict__ lens,
+                     const int32_t* __restrict__ dists,
+                     int32_t* __restrict__ out, int n, int log_gl,
+                     int steps, bool vec) {
+  extern __shared__ int4 sm4[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int GL = 1 << log_gl;
+  int4* sd = sm4;
+  int4* buf0 = sm4 + GL;
+  int4* buf1 = sm4 + 2 * GL;
+  const int r = (int)cluster.block_rank();
+  const int total = (int)cluster.num_blocks() << log_gl;  // groups held
+  const size_t row = (size_t)blockIdx.y * n;
+  // per group: lengths after the last step, distances, may_grow of them;
+  // bit j of `moved`: group j changed in the last step
+  int4 ln[G], dd[G];
+  int mg[G];
+  unsigned moved = 0;
+#pragma unroll
+  for (int j = 0; j < G; ++j) {
+    const int gl = threadIdx.x + j * CHAIN_THREADS;
+    if (gl >= GL) break;
+    const int p = ((r << log_gl) + gl) * 4;
+    ln[j] = load4(lens + row, p, n, vec);
+    dd[j] = load4(dists + row, p, n, vec);
+    mg[j] = may_grow(ln[j], dd[j]);
+    sd[gl] = dd[j];
+    buf0[gl] = ln[j];
+    buf1[gl] = ln[j];
+  }
+  cluster.sync();  // every slice is loaded before a peer reads it
+  for (int k = 0; k < steps; ++k) {
+    const int s = 1 << k;
+    const int4* cur = (k & 1) ? buf1 : buf0;  // holds step k's input
+    int4* nxt = (k & 1) ? buf0 : buf1;        // holds step k - 1's input
+#pragma unroll
+    for (int j = 0; j < G; ++j) {
+      const int gl = threadIdx.x + j * CHAIN_THREADS;
+      if (gl >= GL) break;
+      bool changed = false;
+      if (mg[j] >= s) {  // some position may grow: read its neighbours
+        const int4 l = ln[j], d = dd[j];
+        int4 nl = make_int4(0, 0, 0, 0), nd = nl;  // dist 0: no growth
+        // the group holding p + s (s >= 4) or the next group (s = 1, 2)
+        const int gq = (r << log_gl) + gl + (s >= 4 ? s >> 2 : 1);
+        if (gq < total) {
+          const int rq = gq >> log_gl, lq = gq & (GL - 1);
+          const int4* ql = rq == r ? cur : cluster.map_shared_rank(cur, rq);
+          const int4* qd = rq == r ? sd : cluster.map_shared_rank(sd, rq);
+          nl = ql[lq];
+          nd = qd[lq];
+        }
+        if (s == 1) {
+          nl = make_int4(l.y, l.z, l.w, nl.x);
+          nd = make_int4(d.y, d.z, d.w, nd.x);
+        } else if (s == 2) {
+          nl = make_int4(l.z, l.w, nl.x, nl.y);
+          nd = make_int4(d.z, d.w, nd.x, nd.y);
+        }
+        const int4 v = make_int4(grow(l.x, d.x, nl.x, nd.x, s),
+                                 grow(l.y, d.y, nl.y, nd.y, s),
+                                 grow(l.z, d.z, nl.z, nd.z, s),
+                                 grow(l.w, d.w, nl.w, nd.w, s));
+        changed = v.x != l.x || v.y != l.y || v.z != l.z || v.w != l.w;
+        if (changed) {
+          ln[j] = v;
+          mg[j] = may_grow(v, d);
+        }
+      }
+      // lengths only grow, so the buffer (two steps back) differs from the
+      // new lengths exactly when this step or the last one changed them
+      if (k + 1 < steps && (changed || (moved >> j & 1))) nxt[gl] = ln[j];
+      moved = (moved & ~(1u << j)) | ((unsigned)changed << j);
+    }
+    cluster.sync();  // step k's reads and writes are done; a block leaves
+                     // only after its peers' last reads of its slice
+  }
+#pragma unroll
+  for (int j = 0; j < G; ++j) {
+    const int gl = threadIdx.x + j * CHAIN_THREADS;
+    if (gl >= GL) break;
+    const int p = ((r << log_gl) + gl) * 4;
+    int32_t* o = out + row;
+    if (vec && p + 4 <= n) {
+      *reinterpret_cast<int4*>(o + p) = ln[j];
+    } else {
+      const int v[4] = {ln[j].x, ln[j].y, ln[j].z, ln[j].w};
+      for (int e = 0; e < 4 && p + e < n; ++e) o[p + e] = v[e];
+    }
+  }
+}
+
+template <int G>
+cudaError_t launch_chain(const int32_t* lens, const int32_t* dists,
+                         int32_t* out, int B, int n, int C, int log_gl,
+                         int steps, cudaStream_t stream) {
+  const auto kern = chain_cluster_kernel<G>;
+  const int smem = (int)(3 * sizeof(int4)) << log_gl;
+  const cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return e;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(C, B);
+  cfg.blockDim = dim3(CHAIN_THREADS);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = C;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  // 16-byte loads and stores where every row starts on 16 bytes
+  const bool vec = (n & 3) == 0 && ((uintptr_t)lens & 15) == 0 &&
+                   ((uintptr_t)dists & 15) == 0 && ((uintptr_t)out & 15) == 0;
+  return cudaLaunchKernelEx(&cfg, kern, lens, dists, out, n, log_gl, steps,
+                            vec);
+}
+
+int next_pow2(int v) {
+  int p = 1;
+  while (p < v) p <<= 1;
+  return p;
 }
 
 }  // namespace
@@ -147,25 +327,56 @@ int s4_scan(const int32_t* rec, int32_t* olen, int32_t* odist, int32_t* oflag,
   return (int)cudaGetLastError();
 }
 
-// `steps` doubling steps over `lens`/`dists` ([B][n]) into `out`; `tmp` is
-// scratch of the same size.  `lens` is not modified.
-int s4_chain(const int32_t* lens, const int32_t* dists, int32_t* out,
-             int32_t* tmp, int B, int n, int steps, void* stream) {
+// Longest row s4_chain takes (no launch); longer rows take s4_chain_wide.
+int s4_chain_row_max() { return CHAIN_ROW_MAX; }
+
+// `steps` doubling steps over `lens`/`dists` ([B][n], n <= CHAIN_ROW_MAX)
+// into `out`, one launch.  `lens` is not modified.
+int s4_chain(const int32_t* lens, const int32_t* dists, int32_t* out, int B,
+             int n, int steps, void* stream) {
+  if (B < 1 || B > 65535 || n < 1 || n > CHAIN_ROW_MAX || steps < 0 ||
+      steps > 30)
+    return (int)cudaErrorInvalidValue;
+  int live = 0;  // steps with s < n
+  while (live < steps && (1 << live) < n) ++live;
+  // the largest slices (the fewest clusters: a wave holds 132 blocks)
+  const int L = min(next_pow2(n < 4 ? 4 : n), CHAIN_SLICE);
+  const int C = next_pow2((n + L - 1) / L);
+  const int log_gl = 31 - __builtin_clz((unsigned)(L / 4));
+  const int groups = (L / 4 + CHAIN_THREADS - 1) / CHAIN_THREADS;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t e;
+  if (groups <= 1)
+    e = launch_chain<1>(lens, dists, out, B, n, C, log_gl, live, st);
+  else if (groups == 2)
+    e = launch_chain<2>(lens, dists, out, B, n, C, log_gl, live, st);
+  else
+    e = launch_chain<4>(lens, dists, out, B, n, C, log_gl, live, st);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
+}
+
+// The same for rows of any length: one launch a step with s < n, over
+// `out` and `tmp` (scratch of the same size); a copy when no step is left.
+int s4_chain_wide(const int32_t* lens, const int32_t* dists, int32_t* out,
+                  int32_t* tmp, int B, int n, int steps, void* stream) {
   if (B < 1 || n < 1 || steps < 0 || steps > 30)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const long long total = (long long)B * n;
-  if (steps == 0) {
+  int live = 0;
+  while (live < steps && (1 << live) < n) ++live;
+  if (live == 0) {
     return (int)cudaMemcpyAsync(out, lens, total * sizeof(int32_t),
                                 cudaMemcpyDeviceToDevice, s);
   }
-  const unsigned blocks = (unsigned)((total + CHAIN_THREADS - 1) / CHAIN_THREADS);
+  const unsigned blocks = (unsigned)((total + STEP_THREADS - 1) / STEP_THREADS);
   const int32_t* src = lens;
-  for (int i = 0; i < steps; ++i) {
+  for (int i = 0; i < live; ++i) {
     // ping-pong so that the last step lands in `out`
-    int32_t* dst = ((steps - 1 - i) % 2 == 0) ? out : tmp;
-    chain_step_kernel<<<blocks, CHAIN_THREADS, 0, s>>>(src, dists, dst, n,
-                                                       1 << i, total);
+    int32_t* dst = ((live - 1 - i) % 2 == 0) ? out : tmp;
+    chain_step_kernel<<<blocks, STEP_THREADS, 0, s>>>(src, dists, dst, n,
+                                                      1 << i, total);
     const int err = (int)cudaGetLastError();
     if (err) return err;
     src = dst;

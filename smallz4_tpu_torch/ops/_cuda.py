@@ -34,8 +34,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 #: wrapper name -> number of launches on a CUDA device
 LAUNCHES = {"sort_records": 0, "merge_sorted": 0, "probe": 0, "compact": 0,
-            "pack": 0, "scan": 0, "chain": 0, "run_lengths": 0,
-            "gram_hash": 0, "walk": 0}
+            "pack": 0, "scan": 0, "chain": 0, "chain_wide": 0,
+            "run_lengths": 0, "gram_hash": 0, "walk": 0}
 
 _lock = threading.Lock()
 _lib = None
@@ -61,10 +61,16 @@ _SIGNATURES = {
     "s4_pack": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P],
     # rec, olen, odist, oflag, B, n, stream
     "s4_scan": [_P, _P, _P, _P, _I, _I, _P],
+    # lens, dists, out, B, n, steps, stream
+    "s4_chain": [_P, _P, _P, _I, _I, _I, _P],
+    # -> longest row of s4_chain (no launch)
+    "s4_chain_row_max": [],
     # lens, dists, out, tmp, B, n, steps, stream
-    "s4_chain": [_P, _P, _P, _P, _I, _I, _I, _P],
-    # x, out, scratch, B, n, stream
-    "s4_run_lengths": [_P, _P, _P, _I, _I, _P],
+    "s4_chain_wide": [_P, _P, _P, _P, _I, _I, _I, _P],
+    # x, out, state, B, n, epoch, stream
+    "s4_run_lengths": [_P, _P, _P, _I, _I, ctypes.c_uint, _P],
+    # -> bytes a block of s4_run_lengths scans (no launch)
+    "s4_run_lengths_tile": [],
     # x, grams, hashes, B, n, stream
     "s4_gram_hash": [_P, _P, _P, _I, _I, _P],
     # ctx, grams, prev, runs, start_valid, end_valid, lens, dists, conv, B,

@@ -29,6 +29,7 @@ import torch
 from .. import format as fmt
 
 from . import _cuda, sortnet
+from .sortmatch import chain
 
 CHUNK = 1 << 16          # positions per chunk
 POS_BITS = 17
@@ -59,17 +60,37 @@ MAX_PROBES = 32          # probe kernel's offset table
 
 
 def _far_probes(text: str | None) -> tuple[int, ...]:
+    """The far probe offsets of ``$SMALLZ4_TPU_FAR_PROBES``: any comma list
+    of positive integers, as the reference takes it (0 or a negative
+    offset crashes the reference); unset or empty, the default set."""
     if not text:
         return (12, 16, 24, 32, 48, 64, 96, 128, 160)
-    far = tuple(int(x) for x in text.split(","))
-    if (any(b <= a for a, b in zip((EDGE,) + far, far))
-            or far[-1] > MAX_FAR_PROBE
-            or len(NEAR_PROBES) + len(far) > MAX_PROBES):
-        raise ValueError(
-            f"SMALLZ4_TPU_FAR_PROBES must be increasing offsets in "
-            f"({EDGE}, {MAX_FAR_PROBE}], at most "
-            f"{MAX_PROBES - len(NEAR_PROBES)}: {text!r}")
+    try:
+        far = tuple(int(x) for x in text.split(","))
+    except ValueError:
+        far = ()
+    if not far or min(far) < 1:
+        raise ValueError(f"SMALLZ4_TPU_FAR_PROBES must be a comma list of "
+                         f"positive integers: {text!r}")
     return far
+
+
+def _check_kernel_probes(probes: tuple[int, ...]) -> None:
+    """Refuse a probe set beyond the design of csrc/probe.cu: near probes
+    1..EDGE, then increasing far offsets up to MAX_FAR_PROBE (its
+    shared-memory halo), at most MAX_PROBES in all (its offset table)."""
+    far = probes[len(NEAR_PROBES):]
+    if any(b <= a for a, b in zip((EDGE,) + far, far)):
+        limit = f"far offsets must increase from above {EDGE}"
+    elif far and far[-1] > MAX_FAR_PROBE:
+        limit = f"far offsets must be at most {MAX_FAR_PROBE}"
+    elif len(probes) > MAX_PROBES:
+        limit = f"at most {MAX_PROBES} probes in all"
+    else:
+        return
+    raise ValueError(f"the CUDA probe does not take the far probe set "
+                     f"{','.join(map(str, far))}: {limit} (the plain "
+                     f"version on the CPU takes it)")
 
 
 FAR_PROBES = _far_probes(_os.environ.get("SMALLZ4_TPU_FAR_PROBES"))
@@ -260,6 +281,7 @@ def probe(merged: torch.Tensor, cut_gram: torch.Tensor, cut_pos: torch.Tensor,
                          f"got {merged.dtype} {tuple(merged.shape)}")
     if not _cuda.on_cuda(merged):
         return probe_plain(merged, cut_gram, cut_pos, match_limit, chunk)
+    _check_kernel_probes(PROBES)
     _cuda.check_inputs(merged, cut_gram, cut_pos, match_limit)
     payload = torch.empty(B, n, dtype=torch.int32, device=merged.device)
     key = torch.empty_like(payload)
@@ -319,14 +341,10 @@ def _claims(s_key, s_pay, cut_pos, valid_lo, valid_hi, match_limit,
     lens0 = (s_pay >> 16) & 0xFFFF
     dists0 = s_pay & 0xFFFF
 
-    lens1 = lens0
-    s = 1
-    for _ in range(CHAIN_STEPS):
-        nb_len = _shift_up(lens1, s, 0)
-        nb_dist = _shift_up(dists0, s, 0)
-        grow = (nb_dist == dists0) & (dists0 >= 1) & (lens1 >= s)
-        lens1 = torch.where(grow, torch.maximum(lens1, s + nb_len), lens1)
-        s *= 2
+    # same-distance doubling: the reference's tensor loop computes what
+    # sortmatch.chain does (its zero fill past the row fails
+    # nb_dist == dists0 >= 1 as p + s < n does)
+    lens1 = chain(lens0, dists0, CHAIN_STEPS)
 
     pos = torch.arange(chunk, dtype=torch.int32, device=s_key.device)
     valid = (pos >= valid_lo[:, None]) & (pos < valid_hi[:, None])

@@ -14,10 +14,12 @@ Port of ``smallz4_tpu/ops/pallas_kernels.py``; both take a uint8 row
   ``i``, plus one.  The last byte of a row is always a boundary.
 
 A CPU tensor takes the plain version; a CUDA tensor takes
-``csrc/gramhash.cu`` (one elementwise pass) or ``csrc/runlen.cu`` (a tile
-scan with a carry across tiles).
+``csrc/gramhash.cu`` (one elementwise pass) or ``csrc/runlen.cu`` (one
+single-pass scan with decoupled look-back).
 """
 from __future__ import annotations
+
+import threading
 
 import torch
 
@@ -25,7 +27,14 @@ from . import _cuda
 from .grams import hash20, to_i32
 
 GH_TILE = 256 * 128  # elements per tile of the reference's gram_hash kernel
-RL_TILE = 1024       # elements per block of csrc/runlen.cu
+RL_EPOCH_MAX = (1 << 30) - 1  # epochs of csrc/runlen.cu's status words
+
+#: (device index, stream handle) -> [state, epoch of its last call]: the
+#: run-length kernel's tile counter and status words, zeroed once and reused
+#: by every call on that stream (its status words carry the call's epoch,
+#: so no call needs a reset launch); a call's epoch is unique on its stream
+_RL_STATE: dict = {}
+_RL_LOCK = threading.Lock()
 
 
 def _rows(x: torch.Tensor, name: str) -> torch.Tensor:
@@ -81,10 +90,28 @@ def run_lengths(x: torch.Tensor) -> torch.Tensor:
     xb = _rows(x, "run_lengths")
     if not _cuda.on_cuda(xb):
         return run_lengths_plain(x)
+    if xb.data_ptr() % 16:  # the kernel reads 16-byte words
+        xb = xb.clone()
     B, n = xb.shape
     out = torch.empty(B, n, dtype=torch.int32, device=xb.device)
-    scratch = torch.empty(2 * B * (-(-n // RL_TILE)), dtype=torch.int32,
-                          device=xb.device)
+    state, epoch = _rl_state(xb.device,
+                             -(-B * n // _cuda.lib().s4_run_lengths_tile()))
     _cuda.launch("run_lengths", "s4_run_lengths", xb.device, xb.data_ptr(),
-                 out.data_ptr(), scratch.data_ptr(), B, n)
+                 out.data_ptr(), state.data_ptr(), B, n, epoch)
     return out.reshape(x.shape)
+
+
+def _rl_state(device: torch.device, tiles: int) -> tuple[torch.Tensor, int]:
+    """The state of the next run-length call on ``device``'s current
+    stream (room for ``tiles`` status words) and its epoch; zeroed when
+    made, grown, or when the epochs run out."""
+    key = (device.index, torch.cuda.current_stream(device).cuda_stream)
+    with _RL_LOCK:
+        entry = _RL_STATE.get(key)
+        if (entry is None or entry[0].numel() < tiles + 1
+                or entry[1] >= RL_EPOCH_MAX):
+            entry = [torch.zeros(tiles + 1, dtype=torch.int64,
+                                 device=device), 0]
+            _RL_STATE[key] = entry
+        entry[1] += 1
+        return entry[0], entry[1]

@@ -117,17 +117,23 @@ def neighbor_scan(rec: torch.Tensor):
     return tuple(out)
 
 
-def _check_chain(lens: torch.Tensor, dists: torch.Tensor) -> None:
+MAX_CHAIN_STEPS = 30     # s = 2^29 at the last step stays an int32
+
+
+def _check_chain(lens: torch.Tensor, dists: torch.Tensor, steps: int) -> None:
     if (lens.dim() != 2 or lens.shape != dists.shape
             or lens.dtype != torch.int32 or dists.dtype != torch.int32):
         raise ValueError("chain takes int32 lens and dists of one shape "
                          "[B, n]")
+    if not 0 <= steps <= MAX_CHAIN_STEPS:
+        raise ValueError(f"chain takes 0..{MAX_CHAIN_STEPS} steps, got "
+                         f"{steps}")
 
 
 def chain_plain(lens: torch.Tensor, dists: torch.Tensor,
                 steps: int) -> torch.Tensor:
     """Plain PyTorch version of ``chain`` (any device)."""
-    _check_chain(lens, dists)
+    _check_chain(lens, dists, steps)
     n = lens.shape[-1]
     slot = torch.arange(n, device=lens.device)
     ln = lens
@@ -144,16 +150,22 @@ def chain_plain(lens: torch.Tensor, dists: torch.Tensor,
 def chain(lens: torch.Tensor, dists: torch.Tensor, steps: int) -> torch.Tensor:
     """Same-distance doubling in position order over ``[B, n]`` rows:
     ``steps`` steps len[p] = max(len[p], s + len[p+s]) where dist[p] ==
-    dist[p+s] >= 1 and len[p] >= s (claims stay byte-verified)."""
-    _check_chain(lens, dists)
+    dist[p+s] >= 1 and len[p] >= s (claims stay byte-verified).  On the
+    card a row of up to ``s4_chain_row_max()`` positions takes one launch
+    (``chain``); a longer one takes a launch a step (``chain_wide``)."""
+    _check_chain(lens, dists, steps)
     if not _cuda.on_cuda(lens):
         return chain_plain(lens, dists, steps)
     _cuda.check_inputs(lens, dists)
     B, n = lens.shape
     out = torch.empty_like(lens)
-    tmp = torch.empty_like(lens)
-    _cuda.launch("chain", "s4_chain", lens.device, lens.data_ptr(),
-                 dists.data_ptr(), out.data_ptr(), tmp.data_ptr(), B, n, steps)
+    ptrs = (lens.data_ptr(), dists.data_ptr(), out.data_ptr())
+    if n <= _cuda.lib().s4_chain_row_max():
+        _cuda.launch("chain", "s4_chain", lens.device, *ptrs, B, n, steps)
+    else:
+        tmp = torch.empty_like(lens)
+        _cuda.launch("chain_wide", "s4_chain_wide", lens.device, *ptrs,
+                     tmp.data_ptr(), B, n, steps)
     return out
 
 

@@ -279,13 +279,63 @@ def test_verify_words_7_not_implemented(monkeypatch):
 
 @pytest.mark.parametrize("text", ["8,16", "16,12", "12,2000", "x"])
 def test_far_probes_validated(text):
-    with pytest.raises(ValueError):
+    """The parser takes every comma list of positive offsets, as the
+    reference does; the CUDA probe's check refuses the sets beyond
+    csrc/probe.cu (an offset at or below EDGE, a set that does not
+    increase, an offset above MAX_FAR_PROBE) and names the set."""
+    if text == "x":
+        with pytest.raises(ValueError, match="positive integers"):
+            tcm._far_probes(text)
+        return
+    far = tcm._far_probes(text)
+    assert far == tuple(int(v) for v in text.split(","))
+    with pytest.raises(ValueError, match=text):
+        tcm._check_kernel_probes(tcm.NEAR_PROBES + far)
+
+
+@pytest.mark.parametrize("text", ["12,,16", "0", "12,-4", "1.5", "12,", " "])
+def test_far_probes_refuses_non_positive_or_empty_items(text):
+    with pytest.raises(ValueError, match="positive integers"):
         tcm._far_probes(text)
 
 
 def test_far_probes_default_and_override():
     assert tcm._far_probes(None) == (12, 16, 24, 32, 48, 64, 96, 128, 160)
+    assert tcm._far_probes("") == tcm._far_probes(None)
     assert tcm._far_probes("12,40") == (12, 40)
+    assert tcm._far_probes("2000,12,12") == (2000, 12, 12)
+    assert len(tcm._far_probes(",".join(map(str, range(9, 60))))) == 51
+
+
+@pytest.mark.parametrize("far", [(), (12, 16, 24, 32, 48, 64, 96, 128, 160),
+                                 (100,), tuple(range(9, 33)),
+                                 (12, 16, 160, tcm.MAX_FAR_PROBE)], ids=str)
+def test_kernel_probe_sets_accepted(far):
+    tcm._check_kernel_probes(tcm.NEAR_PROBES + far)
+
+
+@pytest.mark.parametrize("far", [(16, 12, 64), (12, 2000), tuple(range(9, 34)),
+                                 (8, 16), (12, 12)], ids=str)
+def test_probe_refuses_kernel_sets_only_on_cuda(monkeypatch, far):
+    """probe() on a set beyond csrc/probe.cu: on the CPU the plain version
+    runs; a CUDA tensor (the device check mocked) raises a ValueError that
+    names the set, at the call, before any launch and without running the
+    plain version."""
+    monkeypatch.setattr(tcm, "PROBES", tcm.NEAR_PROBES + far)
+    stages = _plain_stages(B=1)
+    merged, gram, pos, lim, _ = stages
+    want = tcm.probe_plain(merged, gram, pos, lim, C)
+    got = tcm.probe(merged, gram, pos, lim, C)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+    def never(*args, **kwargs):
+        raise AssertionError("must not run on the CUDA route")
+
+    monkeypatch.setattr(tcm._cuda, "on_cuda", lambda t: True)
+    monkeypatch.setattr(tcm._cuda, "launch", never)
+    monkeypatch.setattr(tcm, "probe_plain", never)
+    with pytest.raises(ValueError, match=",".join(map(str, far))):
+        tcm.probe(merged, gram, pos, lim, C)
 
 
 def _cuda_or_skip():
@@ -436,6 +486,33 @@ def test_probe_kernel_production_shape_cuda():
                            chunk=tcm.CHUNK, device=dev)
     assert stages[0].shape == (8, 6, 2 * tcm.CHUNK)
     _probe_equals_plain(stages)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("chunk", [C, tcm.CHUNK], ids=str)
+def test_claims_chain_kernel_cuda(chunk):
+    """_claims runs its same-distance doubling through the chain kernel
+    (one launch) and equals the CPU's tensor passes, at the test chunk and
+    at the production chunk of 65,536 positions."""
+    dev = _cuda_or_skip()
+    data = None
+    if chunk != C:
+        from bench import make_corpus
+
+        data = make_corpus(5 * chunk)
+    merged, gram, pos, lim, cand = _plain_stages(data=data, chunk=chunk,
+                                                 device=dev)
+    pay, key = tcm.probe(merged, gram, pos, lim, chunk)
+    okey, opay = tcm.compact(key, pay, chunk)
+    args = (okey, opay, pos, torch.zeros_like(cand), cand, lim, chunk)
+    want = tcm._claims(*(a.cpu() if torch.is_tensor(a) else a
+                         for a in args))
+    before = dict(tcm._cuda.LAUNCHES)
+    got = tcm._claims(*args)
+    torch.cuda.synchronize()
+    assert tcm._cuda.LAUNCHES["chain"] == before["chain"] + 1
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
 
 
 @pytest.mark.cuda

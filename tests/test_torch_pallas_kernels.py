@@ -39,6 +39,24 @@ def _rows():
     return np.stack([a, b, c])
 
 
+def _edge_row(spacing, offset):
+    """Runs whose last byte is at k * spacing - 1 + offset (k = 1, 2, 3):
+    offset 0 ends them exactly at a multiple of ``spacing``, offset 1 one
+    past it; a random stretch in the middle of each run."""
+    rng = np.random.default_rng(spacing + offset)
+    n = 3 * spacing + 300
+    ends = [k * spacing - 1 + offset for k in (1, 2, 3)]
+    x = np.searchsorted(ends, np.arange(n), side="left") % 2
+    x = x.astype(np.uint8)
+    for e in ends:
+        x[e - 600: e - 500] = rng.integers(2, 5, 100, dtype=np.uint8)
+    return x
+
+
+EDGE_CASES = [(spacing, offset) for spacing in (1024, 2048, 4096)
+              for offset in (0, 1)]
+
+
 def _gh_data(n, seed):
     """Random bytes 1..255 (so the tail grams show what they read past the
     end), with runs and repeats in the first half."""
@@ -72,6 +90,11 @@ def ref():
             jnp.asarray(np.full(3072, 65, np.uint8))))
         out["rows"] = [np.asarray(pallas_kernels.run_lengths(jnp.asarray(r)))
                        for r in _rows()]
+        for case in EDGE_CASES:
+            out["edge", case] = np.asarray(pallas_kernels.run_lengths(
+                jnp.asarray(_edge_row(*case))))
+        out["one_run"] = np.asarray(pallas_kernels.run_lengths(
+            jnp.asarray(np.full(9000, 3, np.uint8))))
         for n in GH_SIZES:
             out["gh", n] = [np.asarray(a) for a in pallas_kernels.gram_hash(
                 jnp.asarray(_gh_data(n, seed=n)))]
@@ -101,6 +124,23 @@ def test_run_lengths_batched_rows_equal_reference(ref):
     assert got.shape == (3, 3000)
     for row, want in zip(got.numpy(), ref["rows"]):
         np.testing.assert_array_equal(row, want)
+
+
+@pytest.mark.parametrize("case", EDGE_CASES, ids=str)
+def test_run_lengths_plain_tile_edges_equal_reference(ref, case):
+    """Runs that end exactly at, and one past, multiples of 1,024, 2,048
+    and 4,096 (the CUDA kernel's tile is 4,096 bytes)."""
+    x = _edge_row(*case)
+    got = tpk.run_lengths_plain(torch.from_numpy(x))
+    np.testing.assert_array_equal(got.numpy(), ref["edge", case])
+    for e in (k * case[0] - 1 + case[1] for k in (1, 2)):
+        assert int(got[e]) == 1 and int(got[e - 499]) == 500
+
+
+def test_run_lengths_plain_one_run_equals_reference(ref):
+    got = tpk.run_lengths_plain(torch.full((9000,), 3, dtype=torch.uint8))
+    np.testing.assert_array_equal(got.numpy(), ref["one_run"])
+    np.testing.assert_array_equal(got.numpy(), np.arange(9000, 0, -1))
 
 
 @pytest.mark.parametrize("n", GH_SIZES)
@@ -142,19 +182,41 @@ def test_run_lengths_rejects_bad_input():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape", [(1, 1), (3, 1023), (2, 1025), (8, 1 << 17),
-                                   (2, (1 << 21) + 7)], ids=str)
-def test_run_lengths_kernel_equals_plain_cuda(shape):
+                                   (2, (1 << 21) + 7), (8, 133119), (2, 4095),
+                                   (2, 4096), (2, 4097), (5, 3)], ids=str)
+@pytest.mark.parametrize("kind", ["mixed", "one_run", "tile_runs"])
+def test_run_lengths_kernel_equals_plain_cuda(shape, kind):
+    """Mixed bytes with a long run across many tiles, rows that are one run,
+    and alternating runs of the kernel's tile length that each cross a tile
+    edge; each call is one launch, and repeated calls (the status words'
+    epochs, the tile counter) stay exact."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     rng = np.random.default_rng(sum(shape))
-    x = rng.integers(0, 2, shape, dtype=np.uint8)
-    x[0, : shape[1] // 2] = 0  # a long run across many tiles
+    if kind == "mixed":
+        x = rng.integers(0, 2, shape, dtype=np.uint8)
+        x[0, : shape[1] // 2] = 0  # a long run across many tiles
+    elif kind == "one_run":
+        x = np.full(shape, 9, np.uint8)
+    else:
+        tile = _cuda.lib().s4_run_lengths_tile()
+        alt = (np.arange(shape[1]) + tile // 2) // tile % 2
+        x = np.broadcast_to(alt.astype(np.uint8), shape).copy()
     xd = torch.from_numpy(x).cuda()
+    want = tpk.run_lengths_plain(xd)
     before = _cuda.LAUNCHES["run_lengths"]
-    got = tpk.run_lengths(xd)
+    for _ in range(3):
+        assert torch.equal(tpk.run_lengths(xd), want)
     torch.cuda.synchronize()
-    assert _cuda.LAUNCHES["run_lengths"] == before + 1
-    assert torch.equal(got, tpk.run_lengths_plain(xd))
+    assert _cuda.LAUNCHES["run_lengths"] == before + 3
+
+
+@pytest.mark.cuda
+def test_run_lengths_kernel_unaligned_view_cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    x = torch.from_numpy(_data(5000, seed=3)).cuda()[1:]  # starts off 16 B
+    assert torch.equal(tpk.run_lengths(x), tpk.run_lengths_plain(x))
 
 
 @pytest.mark.cuda

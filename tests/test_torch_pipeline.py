@@ -368,7 +368,7 @@ def test_pipeline_on_cuda_equals_native(tiny):
     # one block of two groups; its halo sort adds one sort launch
     assert _cuda.LAUNCHES == {k: 0 for k in _cuda.LAUNCHES} | {
         "sort_records": 3, "merge_sorted": 2, "probe": 2, "compact": 2,
-        "pack": 2}
+        "chain": 2, "pack": 2}
 
 
 @pytest.mark.cuda

@@ -50,6 +50,20 @@ def _chain_inputs(n, seed):
     return lens, dists
 
 
+def _chain_case(case, n=1024):
+    """Chain rows: the mixed claims above, and one long same-distance run
+    (distance 3, length 8 everywhere: every claim grows to the row's
+    end)."""
+    if case == "mixed":
+        return _chain_inputs(n, seed=5)
+    return np.full(n, 8, np.int32), np.full(n, 3, np.int32)
+
+
+# steps 0 (a copy), 10, and 16 (s = 32768 runs past the 1,024-slot row)
+CHAIN_CASES = [(steps, case) for steps in (0, 10, 16)
+               for case in ("mixed", "one_run")]
+
+
 def _segment_buf(seed, n=1024):
     """The reference tests' segment corpus (tests/test_sortmatch.py), with
     the 16-byte lookahead; seed 3 is its random partial-validity buffer."""
@@ -104,6 +118,10 @@ def ref():
         lens, dists = _chain_inputs(1024, seed=5)
         out["chain"] = np.asarray(sortmatch._chain(
             jnp.asarray(lens), jnp.asarray(dists), 10))
+        for steps, case in CHAIN_CASES:
+            lens, dists = _chain_case(case)
+            out["chain", steps, case] = np.asarray(sortmatch._chain(
+                jnp.asarray(lens), jnp.asarray(dists), steps))
         for case in SEGMENT_CASES:
             seed, sv, ev, cut, fin = case
             res = sortmatch.match_segment(
@@ -133,6 +151,24 @@ def test_chain_equals_reference(ref):
                     10)
     np.testing.assert_array_equal(got[0].numpy(), ref["chain"])
     assert (got[0].numpy() > lens).any()  # the doubling extended claims
+
+
+@pytest.mark.parametrize("steps,case", CHAIN_CASES)
+def test_chain_plain_equals_reference_steps(ref, steps, case):
+    lens, dists = _chain_case(case)
+    got = tsm.chain_plain(torch.from_numpy(lens)[None],
+                          torch.from_numpy(dists)[None], steps)
+    np.testing.assert_array_equal(got[0].numpy(), ref["chain", steps, case])
+    if case == "one_run" and steps == 16:  # each claim reaches the row end
+        np.testing.assert_array_equal(got[0].numpy(),
+                                      np.arange(1024, 0, -1) + 7)
+
+
+@pytest.mark.parametrize("steps", [-1, 31])
+def test_chain_refuses_steps_out_of_range(steps):
+    lens, dists = (torch.from_numpy(a)[None] for a in _chain_case("mixed"))
+    with pytest.raises(ValueError, match="steps"):
+        tsm.chain(lens, dists, steps)
 
 
 @pytest.mark.parametrize("case", SEGMENT_CASES, ids=str)
@@ -194,6 +230,47 @@ def test_scan_and_chain_kernels_equal_plain_cuda(n):
                        tsm.chain_plain(lens, dists, 14))
     assert _cuda.LAUNCHES["scan"] == before["scan"] + 1
     assert _cuda.LAUNCHES["chain"] == before["chain"] + 1
+
+
+def _chain_rows(B, n, kind):
+    """[B, n] chain inputs: realistic claims, rows of distance 1 and
+    length 20, or random int32 lengths and distances (lengths wrap)."""
+    rng = np.random.default_rng(B * n)
+    if kind == "claims":
+        rows = [_chain_inputs(n, seed=s) for s in range(B)]
+        return [np.stack([r[i] for r in rows]) for i in (0, 1)]
+    if kind == "dist1":
+        return np.full((B, n), 20, np.int32), np.ones((B, n), np.int32)
+    lens = rng.integers(-2**31, 2**31, (B, n), dtype=np.int64)
+    dists = rng.integers(-2, 3, (B, n), dtype=np.int64)
+    dists[:, ::5] = rng.integers(-2**31, 2**31, dists[:, ::5].shape)
+    return lens.astype(np.int32), dists.astype(np.int32)
+
+
+# (B, n, steps, kind): both production shapes, n = 1, odd n, steps 0, 1,
+# 17 and 30, random int32 values, distance-1 rows, and a row past the
+# one-launch path (chain_wide)
+CHAIN_KERNEL_CASES = [(64, 65536, 16, "claims"), (8, 131072, 14, "claims"),
+                      (64, 65536, 16, "dist1"), (8, 131072, 14, "dist1"),
+                      (3, 1, 5, "claims"), (2, 1001, 17, "claims"),
+                      (2, 1001, 0, "random"), (2, 4099, 1, "dist1"),
+                      (2, 8193, 30, "random"), (4, 70001, 16, "random"),
+                      (2, 131079, 14, "claims")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,n,steps,kind", CHAIN_KERNEL_CASES, ids=str)
+def test_chain_kernel_cases_cuda(B, n, steps, kind):
+    dev = _cuda_or_skip()
+    lens, dists = (torch.from_numpy(a).to(dev)
+                   for a in _chain_rows(B, n, kind))
+    wide = n > _cuda.lib().s4_chain_row_max()
+    before = dict(_cuda.LAUNCHES)
+    got = tsm.chain(lens, dists, steps)
+    torch.cuda.synchronize()
+    assert torch.equal(got, tsm.chain_plain(lens, dists, steps))
+    assert _cuda.LAUNCHES["chain"] == before["chain"] + (not wide)
+    assert _cuda.LAUNCHES["chain_wide"] == before["chain_wide"] + wide
 
 
 @pytest.mark.cuda
