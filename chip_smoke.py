@@ -16,8 +16,10 @@ network and no arguments.  Phases:
      launches per call); the chain at [64, 65536] with 16 steps, whose plain
      version is the tensor loop it replaces; the sort's and the merge's
      achieved GB/s over the bytes their passes move, the probe's over the
-     tiles and halos it stages; plus the device time of one whole
-     match_chunks group;
+     tiles and halos it stages, the compaction's over every key, the kept
+     payloads and its outputs, the pack's over its read-once bytes; the
+     chain, the compaction and the pack must be one device launch a call;
+     plus the device time of one whole match_chunks group;
   2b. sort-engine kernels: on one full match_segments dispatch (8 segments
      of the fixture, a live boundary cut in row 0, one padding row), the
      record sort at [8, 5, 2^17] with two keys, the neighbour scan (with the
@@ -31,9 +33,13 @@ network and no arguments.  Phases:
      dispatch;
   2d. worst cases: the run lengths on rows that are one run and on runs
      that cross every tile edge, the chain on rows of distance 1 with long
-     lengths, at the production shapes, exact and timed; a chain row longer
-     than the one-launch path takes chain_wide; the chain and the run
-     lengths must be one device launch a call at the production shapes;
+     lengths, the compaction at [64, 65536] on rows whose current records
+     all come before the halo's, all after them, or interleaved at random,
+     the pack at [64, 65536] on rows where every position is a head, slot
+     0 is the only head (conv and lk all ones) or the heads lie in the last
+     eighth (conv and lk all zeros), at the production shapes, exact and
+     timed; a chain row longer than the one-launch path takes chain_wide;
+     each of these kernels must be one device launch a call;
   3. chunk engine end to end, with SMALLZ4_TPU_CPU_ASSIST=0 so every block
      goes through the device: compress(data, 9) on the 10 MB fixture
      (modern and legacy) and on make_corpus(8 MiB) must equal
@@ -65,6 +71,7 @@ import pathlib
 import subprocess
 import sys
 import time
+import types
 
 ROOT = pathlib.Path(__file__).resolve().parent
 FIXTURE = ROOT / "benchdata" / "realcorpus.bin.xz"
@@ -273,12 +280,15 @@ def log_sort_rate(_cuda, phase: str, name: str, res: dict, x,
 def log_floor_rate(phase: str, name: str, res: dict, moved: int,
                    what: str) -> None:
     """A kernel's achieved rate over the bytes its design moves (its own
-    floor), beside the read-once bound."""
+    floor), by the profiler's device time and by CUDA events (which carry
+    the host's enqueue of a short call), beside the read-once bound."""
+    rate = {k: moved / res[k] / 1e6 for k in ("device_ms", "ms")}
     log(f"[{phase}] {name:13s} design bytes ({what}) {moved / 1e6:.2f} MB: "
         f"floor {moved / HBM_BYTES_PER_S * 1e6:.2f} us at "
         f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s; achieved "
-        f"{moved / res['ms'] / 1e6:.2f} GB/s "
-        f"({moved / res['ms'] * 1e3 / HBM_BYTES_PER_S:.2%}); read-once bound "
+        f"{rate['device_ms']:.2f} GB/s by device time "
+        f"({rate['device_ms'] * 1e9 / HBM_BYTES_PER_S:.2%}), "
+        f"{rate['ms']:.2f} GB/s by events; read-once bound "
         f"{res['bound_ms'] * 1e3:.2f} us")
 
 
@@ -316,15 +326,30 @@ def walk_stage_stats(torch, _cuda, wargs, want) -> tuple[int, int, int]:
     return staged, far, nbytes(lens, dists, conv)
 
 
-def worst_cases(torch, np, _cuda, sm, pk, dev, chunk_shape, sort_shape,
+def worst_cases(torch, np, _cuda, sm, pk, cm, dev, chunk_shape, sort_shape,
                 walk_shape) -> None:
     """Phase 2d: the run lengths on rows that are one run and on
     alternating runs of a tile's length, each across a tile edge, at the
     sort and walk shapes; the chain on rows of distance 1 and length 20
-    (every claim grows to its row's end) at the chunk and sort shapes; and
-    a row longer than the one-launch chain path.  Exact, and timed."""
+    (every claim grows to its row's end) at the chunk and sort shapes; the
+    compaction and the pack on the rows of compact_rows and pack_rows at
+    the chunk shape; and a row longer than the one-launch chain path.
+    Exact, and timed."""
     tile = _cuda.lib().s4_run_lengths_tile()
+    B, CH = chunk_shape
     cases = {}
+    for seed, order in enumerate(COMPACT_ORDERS):
+        k, p = (torch.from_numpy(a).to(dev)
+                for a in compact_rows(np, B, CH, order, seed))
+        cases[f"compact [{B}, {2 * CH}] {order}"] = (
+            lambda k=k, p=p: cm.compact(k, p, CH),
+            lambda k=k, p=p: cm.compact_plain(k, p, CH))
+    for seed, case in enumerate(PACK_CASES):
+        rows = [torch.from_numpy(a).to(dev)
+                for a in pack_rows(np, B, CH, case, seed)]
+        cases[f"pack [{B}, {CH}] {case}"] = (
+            lambda rows=rows: cm.pack_results(*rows, chunk=CH),
+            lambda rows=rows: cm.pack_results_plain(*rows, chunk=CH))
     for shape in (sort_shape, walk_shape):
         alt = (np.arange(shape[1]) + tile // 2) // tile % 2
         for kind, x in (("one run", np.full(shape, 7, np.uint8)),
@@ -364,6 +389,57 @@ def worst_cases(torch, np, _cuda, sm, pk, dev, chunk_shape, sort_shape,
         raise AssertionError(f"wide chain: error {err}, launches {took}")
 
 
+COMPACT_ORDERS = ("current first", "halo first", "interleaved")
+PACK_CASES = ("every head", "slot 0 only", "last tile only")
+
+
+def compact_rows(np, B: int, chunk: int, order: str, seed: int):
+    """Probe outputs (key, payload), int32 [B, 2*chunk], for the compaction:
+    each row's chunk current records (key = local << 4 | flags, local a
+    random permutation of [0, chunk)) and chunk halo records (key
+    16*chunk), in slot order ``order``: every current record ahead of every
+    halo record, the reverse, or a random interleave; random payloads."""
+    rng = np.random.default_rng(seed)
+    local = rng.permuted(np.tile(np.arange(chunk, dtype=np.int32), (B, 1)),
+                         axis=1)
+    cur = (local << 4) | rng.integers(0, 16, (B, chunk), dtype=np.int32)
+    halo = np.full((B, chunk), 16 * chunk, np.int32)
+    key = np.concatenate([halo, cur] if order == "halo first"
+                         else [cur, halo], axis=1)
+    if order == "interleaved":
+        key = rng.permuted(key, axis=1)
+    elif order not in COMPACT_ORDERS:
+        raise ValueError(f"unknown order {order!r}")
+    payload = rng.integers(-2**31, 2**31, key.shape).astype(np.int32)
+    return np.ascontiguousarray(key), payload
+
+
+def pack_rows(np, B: int, chunk: int, case: str, seed: int):
+    """Claims (lens, dists int32; conv, lk bool), each [B, chunk], for the
+    pack.  "every head": random lengths (past 65,535 too) and distances
+    1..65535 that differ from the predecessor's, random conv and lk (head
+    count = chunk, no zero tail); "slot 0 only": saturated 65535 /
+    distance-1 claims, conv and lk all ones (head count 1); "last tile
+    only": the same up to the row's last eighth, "every head" claims in it,
+    conv and lk all zeros."""
+    rng = np.random.default_rng(seed)
+    shape = (B, chunk)
+    lens = rng.integers(0, 1 << 17, shape).astype(np.int32)
+    step = rng.integers(1, 65535, shape)
+    dists = (1 + np.cumsum(step, axis=1) % 65535).astype(np.int32)
+    conv = rng.random(shape) < 0.5
+    lk = rng.random(shape) < 0.5
+    if case == "every head":
+        return lens, dists, conv, lk
+    if case not in PACK_CASES:
+        raise ValueError(f"unknown case {case!r}")
+    flat = chunk if case == "slot 0 only" else chunk - chunk // 8
+    lens[:, :flat] = 65535
+    dists[:, :flat] = 1
+    ones = case == "slot 0 only"
+    return (lens, dists, np.full(shape, ones), np.full(shape, ones))
+
+
 def group_inputs(np, cm, fmt, data: bytes, start: int, bs: int):
     """The pipeline's inputs for the first group of the block at ``start``
     (same construction as ops/pipeline.py dispatch_block)."""
@@ -385,6 +461,33 @@ def group_inputs(np, cm, fmt, data: bytes, start: int, bs: int):
     cut = start - fmt.BLOCK_END_NO_MATCH
     cut_gram = cm.pack_cut_gram(data[cut: cut + 4])
     return bufs, cand, lim, hb, cut_gram, CH - fmt.BLOCK_END_NO_MATCH
+
+
+def chunk_group(torch, np, dev, data: bytes) -> types.SimpleNamespace:
+    """The first chunk group of block 1 of ``data`` (a live boundary cut
+    and a history halo) on ``dev``, staged as match_chunks stages it: its
+    inputs (bufs, cand, lim, halo, the scalar cut_gram and cut_pos and the
+    per-row cg and cp) and its records up to the probe (recs, the sorted
+    srt, the merge input x and the merged records)."""
+    from smallz4_tpu_torch import format as fmt
+    from smallz4_tpu_torch.ops import chunkmatch as cm
+    from smallz4_tpu_torch.ops import sortnet
+
+    CH, G = cm.CHUNK, cm.GROUP
+    start = G * CH
+    bufs, cand, lim, hb, cut_gram, cut_pos = group_inputs(
+        np, cm, fmt, data, start, min(fmt.MAX_BLOCK_SIZE, len(data) - start))
+    bufs, cand, lim = (torch.from_numpy(a).to(dev) for a in (bufs, cand, lim))
+    halo = cm.sort_chunk(torch.from_numpy(hb).to(dev), 0, CH, chunk=CH)
+    first = torch.arange(G, device=dev) == 0
+    recs = cm.make_records(bufs, 0, cand, chunk=CH)
+    srt = sortnet.sort_records(recs, n_keys=6, unique=True)
+    x = cm._merged_input(torch.cat([halo[None], srt[:-1]]), srt, CH)
+    return types.SimpleNamespace(
+        bufs=bufs, cand=cand, lim=lim, halo=halo, cut_gram=cut_gram,
+        cut_pos=cut_pos, cg=torch.where(first, cut_gram, 0).to(torch.int32),
+        cp=torch.where(first, cut_pos, -1).to(torch.int32), recs=recs,
+        srt=srt, x=x, merged=sortnet.merge_sorted(x, n_keys=6, unique=True))
 
 
 def encode_run(torch, _cuda, native, pipeline, name, data, expect, **kw):
@@ -473,22 +576,10 @@ def main() -> int:
     # -- phase 2: chunk-engine kernels against their plain versions --------
     real = real_corpus()
     CH, G = cm.CHUNK, cm.GROUP
-    start = G * CH  # block 1: live boundary cut and a history halo
-    bs = min(fmt.MAX_BLOCK_SIZE, len(real) - start)
-    bufs, cand, lim, hb, cut_gram, cut_pos = group_inputs(
-        np, cm, fmt, real, start, bs)
-    bufs_d = torch.from_numpy(bufs).to(dev)
-    cand_d = torch.from_numpy(cand).to(dev)
-    lim_d = torch.from_numpy(lim).to(dev)
-    halo = cm.sort_chunk(torch.from_numpy(hb).to(dev), 0, CH, chunk=CH)
-    first = torch.arange(G, device=dev) == 0
-    cg = torch.where(first, cut_gram, 0).to(torch.int32)
-    cp = torch.where(first, cut_pos, -1).to(torch.int32)
-
-    recs = cm.make_records(bufs_d, 0, cand_d, chunk=CH)
-    srt = sortnet.sort_records(recs, n_keys=6, unique=True)
-    x = cm._merged_input(torch.cat([halo[None], srt[:-1]]), srt, CH)
-    merged = sortnet.merge_sorted(x, n_keys=6, unique=True)
+    grp = chunk_group(torch, np, dev, real)
+    bufs_d, cand_d, lim_d, halo, cg, cp = (grp.bufs, grp.cand, grp.lim,
+                                           grp.halo, grp.cg, grp.cp)
+    recs, x, merged = grp.recs, grp.x, grp.merged
     p_pay, p_key = cm.probe(merged, cg, cp, lim_d, CH)
     s_key, s_pay = cm.compact(p_key, p_pay, CH)
     # the chain's input in _claims: the claims in position order
@@ -513,9 +604,11 @@ def main() -> int:
                   lambda: cm.probe_plain(merged, cg, cp, lim_d, CH),
                   (merged, cg, cp, lim_d),
                   2 * n_rec * 2 * len(cm.PROBES) * 15),
+        # the bytes it must read: every key, and the payloads of the kept
+        # records only (as many as s_pay's)
         "compact": (lambda: cm.compact(p_key, p_pay, CH),
                     lambda: cm.compact_plain(p_key, p_pay, CH),
-                    (p_key, p_pay), 2 * n_rec * 3),
+                    (p_key, s_pay), 2 * n_rec * 3),
         # plain: the tensor loop the kernel replaces in _claims
         "chain": (lambda: sm.chain(c_lens, c_dists, cm.CHAIN_STEPS),
                   lambda: sm.chain_plain(c_lens, c_dists, cm.CHAIN_STEPS),
@@ -525,7 +618,7 @@ def main() -> int:
                  tuple(claims), n_rec * 10),
     }
     results = check_kernels(torch, cases, "2", f"{G} x {CH} positions")
-    require_one_launch(results, ("chain",), "2")
+    require_one_launch(results, ("chain", "compact", "pack"), "2")
     log_sort_rate(_cuda, "2", "sort_records", results["sort_records"], recs,
                   False)
     log_sort_rate(_cuda, "2", "merge_sorted", results["merge_sorted"], x,
@@ -533,13 +626,19 @@ def main() -> int:
     log_floor_rate("2", "probe", results["probe"],
                    probe_design_bytes(_cuda, merged, max(cm.PROBES)),
                    "staged tiles and halos + outputs")
+    log_floor_rate("2", "compact", results["compact"],
+                   nbytes(p_key, s_pay, s_key, s_pay),
+                   "every key, the kept payloads, the outputs")
+    log_floor_rate("2", "pack", results["pack"], nbytes(*claims, *packed),
+                   "read once")
     n_heads = packed[2]
     log(f"[2] head counts: min {int(n_heads.min())} max {int(n_heads.max())}"
         f" mean {float(n_heads.float().mean()):.1f} (HEAD_CAP {cm.HEAD_CAP})")
 
     def group():
-        return cm.match_chunks(halo, bufs_d, cand_d, cand_d, lim_d, cut_gram,
-                               cut_pos, n_chunks=G, chunk=CH)
+        return cm.match_chunks(halo, bufs_d, cand_d, cand_d, lim_d,
+                               grp.cut_gram, grp.cut_pos, n_chunks=G,
+                               chunk=CH)
 
     group_ms = cuda_ms(torch, group, 5)
     log(f"[2] match_chunks, one group ({G * CH} positions): "
@@ -652,8 +751,8 @@ def main() -> int:
         f"searched positions): {wdisp_ms:.3f} ms device = "
         f"{searched / wdisp_ms / 1e3:.2f} MB/s device-only match rate")
 
-    # -- phase 2d: worst cases of the chain and the run lengths -----------
-    worst_cases(torch, np, _cuda, sm, pk, dev, (G, CH), (B, n),
+    # -- phase 2d: worst cases of the chain, run lengths, compact, pack ----
+    worst_cases(torch, np, _cuda, sm, pk, cm, dev, (G, CH), (B, n),
                 (B, mf.SEG_BUF))
 
     # -- phase 3: chunk engine end to end ---------------------------------

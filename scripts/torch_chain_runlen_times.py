@@ -51,7 +51,6 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("no CUDA device", file=sys.stderr)
         return 2
-    from smallz4_tpu_torch import format as fmt
     from smallz4_tpu_torch.ops import chunkmatch as cm
     from smallz4_tpu_torch.ops import pallas_kernels as pk
     from smallz4_tpu_torch.ops import pipeline, sortnet
@@ -62,20 +61,8 @@ def main() -> int:
     real = cs.real_corpus()
 
     CH, G = cm.CHUNK, cm.GROUP
-    bs = min(fmt.MAX_BLOCK_SIZE, len(real) - G * CH)
-    bufs, cand, lim, hb, cut_gram, cut_pos = cs.group_inputs(
-        np, cm, fmt, real, G * CH, bs)
-    bufs, cand, lim = (torch.from_numpy(a).to(dev) for a in (bufs, cand, lim))
-    halo = cm.sort_chunk(torch.from_numpy(hb).to(dev), 0, CH, chunk=CH)
-    first = torch.arange(G, device=dev) == 0
-    cg = torch.where(first, cut_gram, 0).to(torch.int32)
-    cp = torch.where(first, cut_pos, -1).to(torch.int32)
-    srt = sortnet.sort_records(cm.make_records(bufs, 0, cand, chunk=CH),
-                               n_keys=6, unique=True)
-    merged = sortnet.merge_sorted(
-        cm._merged_input(torch.cat([halo[None], srt[:-1]]), srt, CH),
-        n_keys=6, unique=True)
-    p_pay, p_key = cm.probe(merged, cg, cp, lim, CH)
+    g = cs.chunk_group(torch, np, dev, real)
+    p_pay, p_key = cm.probe(g.merged, g.cg, g.cp, g.lim, CH)
     _, s_pay = cm.compact(p_key, p_pay, CH)
     # the chain's input in chunkmatch._claims
     c_lens, c_dists = (s_pay >> 16) & 0xFFFF, s_pay & 0xFFFF
@@ -131,8 +118,8 @@ def main() -> int:
         print(line, flush=True)
 
     def group():
-        return cm.match_chunks(halo, bufs, cand, cand, lim, cut_gram,
-                               cut_pos, n_chunks=G, chunk=CH)
+        return cm.match_chunks(g.halo, g.bufs, g.cand, g.cand, g.lim,
+                               g.cut_gram, g.cut_pos, n_chunks=G, chunk=CH)
 
     ms = cs.cuda_ms(torch, group, 5)
     dev_ms, per_call = cs.device_ms(torch, group, 3)

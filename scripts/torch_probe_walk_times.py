@@ -31,29 +31,17 @@ def main() -> int:
         print("no CUDA device", file=sys.stderr)
         return 2
     import chip_smoke as cs
-    from smallz4_tpu_torch import format as fmt
     from smallz4_tpu_torch.ops import chunkmatch as cm
     from smallz4_tpu_torch.ops import match_finder as mf
-    from smallz4_tpu_torch.ops import pipeline, sortnet
+    from smallz4_tpu_torch.ops import pipeline
 
     dev = torch.device("cuda", 0)
     print(cs.card_line(), flush=True)
     real = cs.real_corpus()
 
-    CH, G = cm.CHUNK, cm.GROUP
-    bs = min(fmt.MAX_BLOCK_SIZE, len(real) - G * CH)
-    bufs, cand, lim, hb, cut_gram, cut_pos = cs.group_inputs(
-        np, cm, fmt, real, G * CH, bs)
-    bufs, cand, lim = (torch.from_numpy(a).to(dev) for a in (bufs, cand, lim))
-    halo = cm.sort_chunk(torch.from_numpy(hb).to(dev), 0, CH, chunk=CH)
-    first = torch.arange(G, device=dev) == 0
-    cg = torch.where(first, cut_gram, 0).to(torch.int32)
-    cp = torch.where(first, cut_pos, -1).to(torch.int32)
-    srt = sortnet.sort_records(cm.make_records(bufs, 0, cand, chunk=CH),
-                               n_keys=6, unique=True)
-    merged = sortnet.merge_sorted(
-        cm._merged_input(torch.cat([halo[None], srt[:-1]]), srt, CH),
-        n_keys=6, unique=True)
+    CH = cm.CHUNK
+    grp = cs.chunk_group(torch, np, dev, real)
+    merged, cg, cp, lim = grp.merged, grp.cg, grp.cp, grp.lim
     equal = all(torch.equal(a, b) for a, b in zip(
         cm.probe(merged, cg, cp, lim, CH),
         cm.probe_plain(merged, cg, cp, lim, CH)))

@@ -56,9 +56,15 @@ _SIGNATURES = {
     "s4_probe_tile": [],
     # key, payload, okey, opay, B, n, chunk, stream
     "s4_compact": [_P, _P, _P, _P, _I, _I, _I, _P],
+    # -> the largest chunk and row count of s4_compact (no launch)
+    "s4_compact_max_chunk": [],
+    "s4_compact_max_rows": [],
     # lens, dists, conv, lk, bits, packed, count, cbits, kbits, B, chunk,
     # stream
     "s4_pack": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P],
+    # -> the largest chunk and row count of s4_pack (no launch)
+    "s4_pack_max_chunk": [],
+    "s4_pack_max_rows": [],
     # rec, olen, odist, oflag, B, n, stream
     "s4_scan": [_P, _P, _P, _P, _I, _I, _P],
     # lens, dists, out, B, n, steps, stream
@@ -175,6 +181,12 @@ def check_inputs(*tensors: torch.Tensor) -> None:
             raise ValueError(f"tensors on {t.device} and {dev}")
         if not t.is_contiguous():
             raise ValueError("kernel inputs must be contiguous")
+
+
+def aligned(x: torch.Tensor) -> torch.Tensor:
+    """The kernels read 16-byte words: copy a view that starts off that
+    boundary."""
+    return x.clone() if x.data_ptr() % 16 else x
 
 
 def on_cuda(t: torch.Tensor) -> bool:

@@ -307,14 +307,37 @@ def compact_plain(key: torch.Tensor, payload: torch.Tensor,
     return c_key.gather(1, order), c_pay.gather(1, order)
 
 
+def _check_kernel_rows(name: str, B: int, chunk: int, low: int) -> None:
+    """Refuse a batch beyond the CUDA kernel's design, whose limits
+    ``csrc/<name>.cu`` exports (the plain versions on the CPU take it)."""
+    lib = _cuda.lib()
+    chunk_max = getattr(lib, f"s4_{name}_max_chunk")()
+    rows_max = getattr(lib, f"s4_{name}_max_rows")()
+    if not low <= chunk <= chunk_max:
+        limit = f"chunk from {low} to {chunk_max}"
+    elif B > rows_max:
+        limit = f"at most {rows_max} rows"
+    else:
+        return
+    raise ValueError(f"the CUDA {name} does not take [{B}, {chunk}]: {limit}"
+                     f" (the plain version on the CPU takes it)")
+
+
 def compact(key: torch.Tensor, payload: torch.Tensor,
             chunk: int) -> tuple[torch.Tensor, torch.Tensor]:
     """Current-chunk probe results in position order: (key, payload), each
     ``[B, chunk]``, from the probe's ``[B, 2*chunk]`` outputs."""
     if not _cuda.on_cuda(key):
         return compact_plain(key, payload, chunk)
-    _cuda.check_inputs(key, payload)
     B, n = key.shape
+    if (n != 2 * chunk or payload.shape != key.shape
+            or key.dtype != torch.int32 or payload.dtype != torch.int32):
+        raise ValueError(f"the CUDA compact takes int32 key and payload of "
+                         f"shape [B, 2*chunk], got {key.dtype} "
+                         f"{tuple(key.shape)}, {payload.dtype} "
+                         f"{tuple(payload.shape)}, chunk {chunk}")
+    _check_kernel_rows("compact", B, chunk, 1)
+    _cuda.check_inputs(key, payload)
     okey = torch.empty(B, chunk, dtype=torch.int32, device=key.device)
     opay = torch.empty_like(okey)
     _cuda.launch("compact", "s4_compact", key.device, key.data_ptr(),
@@ -472,14 +495,17 @@ def pack_results(lens: torch.Tensor, dists: torch.Tensor, conv: torch.Tensor,
     [B, chunk] (zero past the count), head count [B], conv and lk bitmask
     words).  Host inverse: ``native.unpack_claims``."""
     B = lens.shape[0]
-    if (lens.shape != (B, chunk) or lens.dtype != torch.int32
+    if (any(t.shape != (B, chunk) for t in (lens, dists, conv, lk))
+            or lens.dtype != torch.int32
             or dists.dtype != torch.int32 or conv.dtype != torch.bool
             or lk.dtype != torch.bool or chunk % 32):
         raise ValueError("pack_results takes int32 lens/dists and bool "
                          "conv/lk of shape [B, chunk], chunk % 32 == 0")
     if not _cuda.on_cuda(lens):
         return pack_results_plain(lens, dists, conv, lk, chunk)
+    _check_kernel_rows("pack", B, chunk, 32)
     _cuda.check_inputs(lens, dists, conv, lk)
+    lens, dists, conv, lk = map(_cuda.aligned, (lens, dists, conv, lk))
     dev = lens.device
     bits = torch.empty(B, chunk // 32, dtype=torch.int32, device=dev)
     cbits = torch.empty_like(bits)

@@ -42,12 +42,6 @@ def _batched(planes: torch.Tensor, n_keys: int, unique: bool, min_n: int):
     return x.contiguous()
 
 
-def _aligned(x: torch.Tensor) -> torch.Tensor:
-    """The kernels read 16-byte words: copy a view that starts off that
-    boundary."""
-    return x.clone() if x.data_ptr() % 16 else x
-
-
 def sort_records_plain(planes: torch.Tensor, n_keys: int = 1,
                        unique: bool = False) -> torch.Tensor:
     """Plain PyTorch version of ``sort_records`` (any device)."""
@@ -73,7 +67,7 @@ def sort_records(planes: torch.Tensor, n_keys: int = 1,
     del unroll
     x = _batched(planes, n_keys, unique, 1024)
     if _cuda.on_cuda(x):
-        x = _aligned(x)
+        x = _cuda.aligned(x)
         B, P, n = x.shape
         out = torch.empty_like(x)
         tmp = torch.empty_like(x)
@@ -91,7 +85,7 @@ def merge_sorted(planes: torch.Tensor, n_keys: int = 1,
     be a power of two >= 2048, as in the reference."""
     x = _batched(planes, n_keys, unique, 2048)
     if _cuda.on_cuda(x):
-        x = _aligned(x)
+        x = _cuda.aligned(x)
         B, P, n = x.shape
         out = torch.empty_like(x)
         _cuda.launch("merge_sorted", "s4_merge_halves", x.device,
