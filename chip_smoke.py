@@ -52,12 +52,23 @@ network and no arguments.  Phases:
   3c. walk engine end to end: the fixture at 4 MiB blocks with
      kernel="walk", equal to native and decoding back, one launch of
      gram_hash, walk and run_lengths per dispatch; one parity=False
-     walk-engine stream must round-trip.
+     walk-engine stream must round-trip;
+  3d. device decode: the block expansion (csrc/expand.cu) against its
+     plain version, exact over all out_cap bytes, on real blocks (with and
+     without history, a dictionary block), on its worst cases at 4 MiB (a
+     chain 1M deep, one run, offsets into the history, literals only) and
+     on a batch of 8 rows with 2 padding rows, timed, one launch of the
+     kernel a call on every case (torch.profiler); then
+     decompress(engine="device") on every stream of phases 3-3c and a
+     dictionary frame, and decompress_batch on 16 mixed frames, each equal
+     to its input, one expand launch a compressed block or batch round,
+     with the decode rates beside native.decompress's.
 
 Prints a {"kernels": [...]} JSON line (each kernel's launches on its main
 path, error, kernel / plain / library time and bound; the chain once for
 the chunk engine and once for the sort engine, the run lengths once for the
-sort engine and once for the walk engine), the nvidia-smi line,
+sort engine and once for the walk engine, the expansion for the decode),
+the nvidia-smi line,
 and as the last line {"ok": true, "device": {...}}.  Any failure raises
 (exit != 0) before that line.
 """
@@ -104,6 +115,9 @@ KERNELS = [  # (counter, source, replaced TPU kernel, engine path)
     # XLA in the reference (its lockstep while loops), not Pallas
     ("walk", "smallz4_tpu_torch/csrc/walk.cu",
      "smallz4_tpu/ops/match_finder.py:75", "walk"),
+    # XLA in the reference (its pointer-doubling while loop), not Pallas
+    ("expand", "smallz4_tpu_torch/csrc/expand.cu",
+     "smallz4_tpu/ops/decoder.py:28", "decode"),
 ]
 CHUNK_KERNELS = ("sort_records", "merge_sorted", "probe", "compact", "chain",
                  "pack")
@@ -158,14 +172,15 @@ def cuda_ms(torch, fn, reps: int) -> float:
     return e0.elapsed_time(e1) / reps
 
 
-def device_ms(torch, fn, reps: int) -> tuple[float, float]:
-    """(device time in ms, device launches) per call of fn(), from a
-    torch.profiler trace of reps calls after one warm-up: the trace's raw
-    kernel records (not copies, fills or the window's own annotation) that
-    start inside the calls' time window, one per correlation id, their own
-    intervals summed, without the host's enqueue.  A trace that lost
-    records holds no whole number of launches a call; traces are taken
-    again, up to six, until one does, else the fullest one counts."""
+def device_ms(torch, fn, reps: int, name: str = "") -> tuple[float, float]:
+    """(device time in ms, device launches of the kernels whose name holds
+    ``name``, all by default) per call of fn(), from a torch.profiler trace
+    of reps calls after one warm-up: the trace's raw kernel records (not
+    copies, fills or the window's own annotation) that start inside the
+    calls' time window, one per correlation id, their own intervals
+    summed, without the host's enqueue.  A trace that lost records holds
+    no whole number of launches a call; traces are taken again, up to six,
+    until one does, else the fullest one counts."""
     from torch.profiler import ProfilerActivity, profile, record_function
 
     fn()
@@ -183,7 +198,8 @@ def device_ms(torch, fn, reps: int) -> tuple[float, float]:
                    for e in events]
         window = next(e for e, card in zip(events, on_card)
                       if not card and e.name() == "timed calls")
-        kernels = {e.correlation_id(): e.end_ns() - e.start_ns()
+        kernels = {e.correlation_id(): (e.end_ns() - e.start_ns(),
+                                        name in e.name())
                    for e, card in zip(events, on_card)
                    if card and e.name() != "timed calls"
                    and not e.name().startswith(("Memcpy", "Memset"))
@@ -192,7 +208,8 @@ def device_ms(torch, fn, reps: int) -> tuple[float, float]:
             best = kernels
         if best and len(best) % reps == 0:
             break
-    return sum(best.values()) / 1e6 / reps, len(best) / reps
+    return (sum(ns for ns, _ in best.values()) / 1e6 / reps,
+            sum(hit for _, hit in best.values()) / reps)
 
 
 def max_err(torch, got, want) -> int:
@@ -222,18 +239,20 @@ def bound(moved_bytes: int, ops: float) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def check_kernels(torch, cases, phase: str, shape_note: str) -> dict:
+def check_kernels(torch, cases, phase: str, shape_note: str,
+                  kernel_name: str = "") -> dict:
     """cases: name -> (kernel fn, plain fn, input tensors, op count).
     Each kernel must equal its plain version exactly (integers:
     tolerance 0); both are timed with CUDA events, the kernel also by the
-    profiler (device time and device launches per call)."""
+    profiler (device time per call, and the device launches a call of
+    the kernels whose name holds ``kernel_name``, all by default)."""
     results = {}
     for name, (kern, plain, inputs, ops) in cases.items():
         got = kern()
         err = max_err(torch, got, plain())
         ms = cuda_ms(torch, kern, 10)
         plain_ms = cuda_ms(torch, plain, 3)
-        dev_ms, per_call = device_ms(torch, kern, 5)
+        dev_ms, per_call = device_ms(torch, kern, 5, kernel_name)
         bound_ms, bound_by = bound(nbytes(*inputs) + nbytes(got), ops)
         log(f"[{phase}] {name:13s} max_abs_err {err} (tolerance 0: exact "
             f"integers)  kernel {ms:.4f} ms (device {dev_ms:.4f} ms, "
@@ -440,6 +459,71 @@ def pack_rows(np, B: int, chunk: int, case: str, seed: int):
     return (lens, dists, np.full(shape, ones), np.full(shape, ones))
 
 
+EXPAND_CASES = ("deep chain", "one run", "history offsets", "literals only",
+                "padding")
+
+
+def expand_row(np, case: str, n: int, seed: int):
+    """One row of the block expansion's worst cases at n output bytes
+    (n a multiple of 4): (payload uint8, hist uint8 [65536] random,
+    (lit_len, match_len, match_off, lit_src) int32), numpy.  "deep chain":
+    4 literals, then matches of length 4 at offset 4 (the overlap
+    contraction does nothing, the chain is n/4 deep); "one run": 1 literal
+    and one match at offset 1; "history offsets": random sequences
+    (literals 0..3, matches 4..19 at offsets 1..65535, so chains leave the
+    block through the history), then a literals-only sequence; "literals
+    only": one literal run; "padding": an empty row (out_len 0)."""
+    rng = np.random.default_rng(seed)
+    hist = rng.integers(0, 256, 65536, dtype=np.uint8)
+    i32 = np.int32
+    if case == "deep chain":
+        k = (n - 4) // 4
+        ll, ml, mo = np.zeros(k, i32), np.full(k, 4, i32), np.full(k, 4, i32)
+        ll[0] = 4
+        return (rng.integers(0, 256, 4, dtype=np.uint8), hist,
+                (ll, ml, mo, np.zeros(k, i32)))
+    if case == "one run":
+        return (rng.integers(0, 256, 1, dtype=np.uint8), hist,
+                tuple(np.asarray([v], i32) for v in (1, n - 1, 1, 0)))
+    if case == "literals only":
+        return (rng.integers(0, 256, n, dtype=np.uint8), hist,
+                tuple(np.asarray([v], i32) for v in (n, 0, 0, 0)))
+    if case == "padding":
+        return (np.zeros(0, np.uint8), hist,
+                tuple(np.zeros(0, i32) for _ in range(4)))
+    if case != "history offsets":
+        raise ValueError(f"unknown case {case!r}")
+    m = n // 12 + 1  # more sequences than the row can hold
+    ll = rng.integers(0, 4, m).astype(i32)
+    ml = rng.integers(4, 20, m).astype(i32)
+    mo = rng.integers(1, 65536, m).astype(i32)
+    ends = np.cumsum(ll + ml)
+    k = int(np.searchsorted(ends, n - 8, side="right"))  # whole ones that fit
+    ll, ml, mo = ll[:k + 1], ml[:k + 1], mo[:k + 1]
+    ll[k] = n - int(ends[k - 1] if k else 0)  # the final literal run
+    ml[k], mo[k] = 0, 0
+    ls = (np.cumsum(ll) - ll).astype(i32)
+    return (rng.integers(0, 256, int(ll.sum()), dtype=np.uint8), hist,
+            (ll, ml, mo, ls))
+
+
+def expand_batch(np, rows):
+    """Rows (payload, hist, tables) stacked as ops.decoder.decompress_batch
+    stacks a round: payload [B, pc], hist [B, 65536], tables [4, B, sc],
+    padded to its power-of-two buckets, and the round's out_cap."""
+    from smallz4_tpu_torch.ops import decoder
+
+    oc = decoder._bucket(max(max(int(t[0].sum() + t[1].sum())
+                                 for _, _, t in rows), 1), 4096)
+    pc = decoder._bucket(max(max(len(p) for p, _, _ in rows), 1), 1024)
+    sc = decoder._bucket(max(max(len(t[0]) for _, _, t in rows), 1), 256)
+    pay = np.zeros((len(rows), pc), np.uint8)
+    for i, (p, _, _) in enumerate(rows):
+        pay[i, :len(p)] = p
+    return (pay, np.stack([h for _, h, _ in rows]),
+            decoder._pad_tables([t for _, _, t in rows], sc), oc)
+
+
 def group_inputs(np, cm, fmt, data: bytes, start: int, bs: int):
     """The pipeline's inputs for the first group of the block at ``start``
     (same construction as ops/pipeline.py dispatch_block)."""
@@ -493,7 +577,7 @@ def chunk_group(torch, np, dev, data: bytes) -> types.SimpleNamespace:
 def encode_run(torch, _cuda, native, pipeline, name, data, expect, **kw):
     """One device encode with the launch counters set to 0 just before it:
     the stream must equal native.compress and decode back, and the counts
-    must equal ``expect``.  Returns (launch counts, stats)."""
+    must equal ``expect``.  Returns (launch counts, stats, stream)."""
     native_kw = {k: v for k, v in kw.items() if k in ("legacy", "block_size")}
     t = time.perf_counter()
     want = native.compress(data, 9, **native_kw)
@@ -522,7 +606,172 @@ def encode_run(torch, _cuda, native, pipeline, name, data, expect, **kw):
         f"{stats['device_dispatch']:.3f} s, collect "
         f"{stats['device_sync']:.3f} s, refine+DP+emit tail "
         f"{stats['host_refine_dp_emit']:.3f} s")
-    return counts, stats
+    return counts, stats, got
+
+
+def dictionary_frame(native, real: bytes):
+    """(data, frame, dictionary): 32 KiB that repeat the dictionary's tail,
+    then 512 KiB of the fixture, compressed against the fixture's first
+    64 KiB, so matches reach back past position 0 into the dictionary."""
+    h = 1 << 16
+    data = real[h // 2:h] + real[2 << 20:(2 << 20) + (1 << 19)]
+    return data, native.compress(data, 9, dictionary=real[:h]), real[:h]
+
+
+def expand_cases(torch, np, dev, real: bytes, made, dframe) -> dict:
+    """Phase 3d, the kernel: s4_expand against its plain version, exact over
+    all out_cap bytes, on block 1 of the realcorpus frame of phase 3 (no
+    history) and block 2 (the history is block 1's tail), on the first
+    block of the dictionary frame, on the worst cases of expand_row at
+    4 MiB (a chain 1M deep, one run, offsets into the history, literals
+    only) and on a batch of 8 rows (6 blocks of the 1 MiB-block frame of
+    phase 3b, each with its history, and 2 padding rows).  The real blocks
+    must expand to their data.  Timed; the bound counts each row's real
+    payload, sequences and reachable history and all the output.  The
+    kernel must launch once a call on every case (torch.profiler, its
+    records by name; a call's other launches are the ends' add and
+    cumsum).  Returns the realcorpus
+    block's results, the others under "cases"."""
+    from smallz4_tpu_torch.ops import decoder
+
+    H, mib = decoder.HIST_CAP, 1 << 20
+    streams = {name: got for name, _, got in made}
+
+    def block(frame, k, tail):
+        payload, tables, _ = list(decoder.frame_blocks(frame))[k]
+        hist = np.zeros(H, np.uint8)
+        hist[H - len(tail):] = np.frombuffer(tail, np.uint8)
+        return np.frombuffer(payload, np.uint8), hist, tables
+
+    ddata, dfr, dictionary = dframe
+    rows = {
+        "realcorpus block 1": [block(streams["realcorpus"], 0, b"")],
+        "realcorpus block 2": [block(streams["realcorpus"], 1,
+                                     real[4 * mib - H:4 * mib])],
+        "dictionary block": [block(dfr, 0, dictionary)],
+        **{f"{case} 4 MiB": [expand_row(np, case, 4 * mib, i)]
+           for i, case in enumerate(EXPAND_CASES) if case != "padding"},
+        "batch of 8 rows": [block(streams["realcorpus_1MiB"], k,
+                                  real[max(k * mib - H, 0):k * mib])
+                            for k in range(6)]
+                           + [expand_row(np, "padding", 0, 9)] * 2,
+    }
+    expect = {"realcorpus block 1": real[:4 * mib],
+              "realcorpus block 2": real[4 * mib:8 * mib],
+              "dictionary block": ddata}
+    cases = {}
+    for name, rs in rows.items():
+        pay, hist, tabs, oc = expand_batch(np, rs)
+        pay, hist, tabs = (torch.from_numpy(a).to(dev)
+                           for a in (pay, hist, tabs))
+        args = (pay, hist, *tabs)
+        if name in expect:
+            got = decoder.expand_block(*args, out_cap=oc)[0].cpu().numpy()
+            if got[:len(expect[name])].tobytes() != expect[name]:
+                raise AssertionError(f"{name} does not expand to its data")
+        # the bytes the function needs: each row's real payload and
+        # sequences (not the buckets' padding, which it never reads), the
+        # history back to its farthest match source, and all the output
+        inputs = []
+        for i, (p, _, (ll, ml, mo, _)) in enumerate(rs):
+            far = (mo - (np.cumsum(ll + ml) - ml))[ml > 0]
+            reach = int(min(max(far.max(initial=0), 0), H))
+            inputs += [pay[i, :len(p)], tabs[:, i, :len(ll)],
+                       hist[i, H - reach:]]
+        res = check_kernels(torch, {"expand": (
+            lambda a=args, oc=oc: decoder.expand_block(*a, out_cap=oc),
+            lambda a=args, oc=oc: decoder.expand_block_plain(*a, out_cap=oc),
+            tuple(inputs), 0)}, "3d",
+            f"{name}: {len(rs)} x {oc} output bytes, sc {tabs.shape[-1]}",
+            kernel_name="expand_kernel")
+        cases[name] = r = res["expand"]
+        # one launch of the kernel a call, whatever the chains' depth
+        per_call = r["device_launches_per_call"]
+        log(f"[3d] {name}: the bound is "
+            f"{r['bound_ms'] / r['device_ms']:.2%} of the device time; "
+            f"{per_call:g} launch(es) of s4_expand's kernel a call")
+        if per_call != 1:
+            raise AssertionError(f"{name}: s4_expand's kernel launched "
+                                 f"{per_call:g} times a call")
+    main_case = dict(cases.pop("realcorpus block 1"))
+    main_case["cases"] = cases
+    return main_case
+
+
+def decode_run(torch, np, _cuda, native, api, real: bytes, made,
+               dframe) -> dict:
+    """Phase 3d, end to end, with the launch counters set to 0 just before
+    it: decompress(engine="device") on every stream of phases 3-3c (modern
+    and legacy, 1 MiB and 4 MiB blocks) and on the dictionary frame, and
+    decompress_batch(engine="device") on 16 frames of mixed kinds; each
+    output must equal its input, expand must launch once a compressed block
+    and once a batch round.  Logs the decode rate (MB/s of output, host
+    clock) beside native.decompress's.  Returns the launch counts."""
+    from smallz4_tpu_torch.ops import decoder
+
+    def n_comp(frame):
+        return sum(t is not None for _, t, _ in decoder.frame_blocks(frame))
+
+    runs = [(name, data, got, None) for name, data, got in made]
+    ddata, dfr, dictionary = dframe
+    runs.append(("dictionary frame", ddata, dfr, dictionary))
+    rng = np.random.default_rng(11)
+    kb = 100_000
+    kinds = ([(real[k * 2 * kb:(k + 1) * 2 * kb], {}) for k in range(4)]
+             + [(rng.integers(0, 256, 70_000, dtype=np.uint8).tobytes(), {})
+                for _ in range(2)]
+             + [(real[(1 << 20) + k * 2 * kb:(1 << 20) + (k + 1) * 2 * kb],
+                 {"block_size": 1 << 16}) for k in range(3)]
+             + [(real[(2 << 20) + k * kb:(2 << 20) + (k + 1) * kb],
+                 {"legacy": True}) for k in range(3)]
+             + [(b"", {}), (b"short", {}), (real[:100], {}),
+                (real[:5000], {})])
+    batch = [(raw, native.compress(raw, 9, **kw)) for raw, kw in kinds]
+    torch.cuda.synchronize()
+    _cuda.reset_counts()
+    for name, data, frame, dic in runs:
+        before = _cuda.LAUNCHES["expand"]
+        t = time.perf_counter()
+        got = api.decompress(frame, dictionary=dic, engine="device")
+        wall = time.perf_counter() - t
+        took = _cuda.LAUNCHES["expand"] - before
+        if got != data:
+            raise AssertionError(f"{name}: device decode != input")
+        if took != n_comp(frame):
+            raise AssertionError(f"{name}: {took} expand launches, "
+                                 f"{n_comp(frame)} compressed blocks")
+        t = time.perf_counter()
+        native.decompress(frame, dictionary=dic)
+        native_s = time.perf_counter() - t
+        log(f"[3d] decode {name}: {len(frame)} B -> {len(data)} B, equal to "
+            f"the input; {len(data) / wall / 1e6:.3f} MB/s device decode "
+            f"({wall:.3f} s, {took} expand launches); native.decompress "
+            f"{len(data) / native_s / 1e6:.3f} MB/s")
+    before = _cuda.LAUNCHES["expand"]
+    t = time.perf_counter()
+    got = api.decompress_batch([f for _, f in batch], engine="device")
+    wall = time.perf_counter() - t
+    took = _cuda.LAUNCHES["expand"] - before
+    counts = dict(_cuda.LAUNCHES)
+    rounds = max(len(list(decoder.frame_blocks(f))) for _, f in batch)
+    if got != [raw for raw, _ in batch]:
+        raise AssertionError("decompress_batch != the inputs")
+    if took != rounds:
+        raise AssertionError(f"decompress_batch: {took} expand launches, "
+                             f"{rounds} rounds")
+    total = sum(len(raw) for raw, _ in batch)
+    t = time.perf_counter()
+    for _, f in batch:
+        native.decompress(f)
+    native_s = time.perf_counter() - t
+    log(f"[3d] decompress_batch of {len(batch)} frames (compressed, stored, "
+        f"multi-block, legacy, short): {total} B, equal to the inputs; "
+        f"{total / wall / 1e6:.3f} MB/s ({wall:.3f} s, {took} expand "
+        f"launches = rounds); native.decompress loop "
+        f"{total / native_s / 1e6:.3f} MB/s")
+    if any(v for k, v in counts.items() if k != "expand"):
+        raise AssertionError(f"decode launched other kernels: {counts}")
+    return counts
 
 
 def main() -> int:
@@ -766,14 +1015,17 @@ def main() -> int:
                 | {"sort_records": groups + blocks})
 
     launches = None
+    made = []  # (name, data, stream) of every device encode, for phase 3d
     for name, data, legacy in (
             ("realcorpus", real, False),
             ("make_corpus_8MiB", bench.make_corpus(8 << 20), False),
             ("realcorpus_legacy", real, True)):
         block = fmt.MAX_BLOCK_SIZE_LEGACY if legacy else fmt.MAX_BLOCK_SIZE
         log(f"[3] chunk engine, {name}")
-        counts, _ = encode_run(torch, _cuda, native, pipeline, name, data,
-                               chunk_expected(data, block), legacy=legacy)
+        counts, _, got = encode_run(torch, _cuda, native, pipeline, name,
+                                    data, chunk_expected(data, block),
+                                    legacy=legacy)
+        made.append((name, data, got))
         launches = launches or counts
     public = smallz4_tpu_torch.compress(real, 9)  # the default: the card
     if public != native.compress(real, 9):
@@ -799,8 +1051,10 @@ def main() -> int:
                                  "sort")):
         exp = sort_expected(real, block)
         log(f"[3b] sort engine, {name} ({exp['scan']} dispatches)")
-        counts, _ = encode_run(torch, _cuda, native, pipeline, name, real,
-                               exp, block_size=block, kernel=kernel)
+        counts, _, got = encode_run(torch, _cuda, native, pipeline, name,
+                                    real, exp, block_size=block,
+                                    kernel=kernel)
+        made.append((name, real, got))
         sort_launches = sort_launches or counts
     raw = pipeline.compress(real, 9, block_size=1 << 20, parity=False,
                             device=dev)
@@ -816,10 +1070,11 @@ def main() -> int:
     exp = {k: 0 for k in _cuda.LAUNCHES} | {k: n_disp for k in WALK_KERNELS}
     log(f"[3c] walk engine, realcorpus_4MiB_walk ({n_disp} dispatches, "
         f"max_candidates=64)")
-    walk_launches, _ = encode_run(torch, _cuda, native, pipeline,
-                                  "realcorpus_4MiB_walk", real, exp,
-                                  block_size=fmt.MAX_BLOCK_SIZE,
-                                  kernel="walk")
+    walk_launches, _, got = encode_run(torch, _cuda, native, pipeline,
+                                       "realcorpus_4MiB_walk", real, exp,
+                                       block_size=fmt.MAX_BLOCK_SIZE,
+                                       kernel="walk")
+    made.append(("realcorpus_4MiB_walk", real, got))
     raw = pipeline.compress(real, 9, parity=False, kernel="walk", device=dev)
     if native.decompress(raw) != real:
         raise AssertionError("walk-engine parity=False stream does not "
@@ -827,10 +1082,17 @@ def main() -> int:
     log(f"[3c] walk engine parity=False (4 MiB blocks): {len(raw)} B, "
         f"round-trips")
 
+    # -- phase 3d: device decode ------------------------------------------
+    dframe = dictionary_frame(native, real)
+    results["expand", "decode"] = expand_cases(torch, np, dev, real, made,
+                                               dframe)
+    decode_launches = decode_run(torch, np, _cuda, native, smallz4_tpu_torch,
+                                 real, made, dframe)
+
     results["sort_records", "chunk"]["sort_engine"]["launches"] = \
         sort_launches["sort_records"]
     path_launches = {"chunk": launches, "sort": sort_launches,
-                     "walk": walk_launches}
+                     "walk": walk_launches, "decode": decode_launches}
     kernels = [{"name": name, "route": "cuda", "source": src,
                 "replaces": rep, "path": path,
                 "launches": path_launches[path][name],

@@ -5,8 +5,8 @@ Engines:
              the search kernel 'chunk', 'sort' or 'walk': a CUDA device runs
              the hand-written kernels, the CPU their plain PyTorch versions.
   'native' — the C++ host runtime (smallz4_tpu_torch.native).
-  'auto'   — 'device' for compress; 'native' for decompress, whose device
-             decode is not ported yet (ROADMAP.md, queue 1: decode).
+  'auto'   — 'device' for compress; 'native' for decompress and
+             decompress_batch, as in the reference's codec.
 """
 from __future__ import annotations
 
@@ -33,12 +33,24 @@ def compress(data, level=9, legacy=False, dictionary=None, block_size=None,
                              device=device, kernel=kernel)
 
 
-def decompress(data, dictionary=None, engine="auto") -> bytes:
-    """Native decode for 'auto' and 'native'; 'device' raises until the
-    decode slice is ported."""
+def decompress(data, dictionary=None, engine="auto", device="cuda") -> bytes:
+    """'device' expands the blocks on ``device`` (ops.pipeline.decompress);
+    'auto' and 'native' run the native decoder."""
     _check(engine)
     if engine == "device":
-        raise NotImplementedError(
-            "device decode is not ported yet (ROADMAP.md, queue 1: decode); "
-            "use engine='native'")
+        from .ops import pipeline
+        return pipeline.decompress(data, dictionary=dictionary, device=device)
     return native.decompress(data, dictionary=dictionary)
+
+
+def decompress_batch(frames, dictionary=None, engine="auto",
+                     device="cuda") -> list:
+    """Decode many independent frames.  'device' expands block r of every
+    frame in one call on ``device`` (ops.decoder.decompress_batch); 'auto'
+    and 'native' loop the native decoder."""
+    _check(engine)
+    if engine == "device":
+        from .ops import decoder
+        return decoder.decompress_batch(frames, dictionary=dictionary,
+                                        device=device)
+    return [native.decompress(f, dictionary=dictionary) for f in frames]

@@ -1,10 +1,11 @@
 """ctypes binding to the repository's C++ host runtime, built for the port.
 
 The port's own binding of the entry points it calls: the one-shot frame
-encoder and decoder, and the block-level stages of the device pipeline
-(claim unpacking, refine, optimal-parse DP, emit).  At first use the
-runtime is compiled from ``native/src/tlz4.cpp`` with the flags of
-``native/Makefile`` into ``smallz4_tpu_torch/build/libtlz4.so``.  The build
+encoder and decoder, the block-level stages of the device pipeline (claim
+unpacking, refine, optimal-parse DP, emit) and the sequence parse of the
+device decode.  At first use the runtime is compiled from
+``native/src/tlz4.cpp`` with the flags of ``native/Makefile`` into
+``smallz4_tpu_torch/build/libtlz4.so``.  The build
 holds a file lock, compiles into a per-process temporary file and renames
 it into place, so concurrent processes build it once and never load a
 half-written library; a stamp file beside it holds the hash of the sources
@@ -114,6 +115,7 @@ def _load():
             "tlz4_estimate_costs": [i32p, i32p, i64],
             "tlz4_unpack_claims": [u32p, i32p, i64, i64, i32p, i32p],
             "tlz4_emit_block": [u8p, i64, i32p, i32p, u8p, i64],
+            "tlz4_parse_sequences": [u8p, i64, i32p, i32p, i32p, i32p, i64],
         }.items():
             fn = getattr(lib, name)
             fn.argtypes = args
@@ -254,3 +256,20 @@ def emit_block(block, lens: np.ndarray, dists: np.ndarray) -> bytes:
     r = _check(_load().tlz4_emit_block(_ptr(b), len(b), _ptr32(lens),
                                        _ptr32(dists), _ptr(out), cap))
     return out[:r].tobytes()
+
+
+def parse_sequences(payload):
+    """Split a compressed block payload into its sequence table: int32
+    (lit_len, match_len, match_off, lit_src), one entry a sequence; the
+    final literals-only sequence has match_len and match_off 0."""
+    lib = _load()
+    p = _u8(payload)
+    max_seq = len(p) + 2
+    lit_len = np.empty(max_seq, np.int32)
+    match_len = np.empty(max_seq, np.int32)
+    match_off = np.empty(max_seq, np.int32)
+    lit_src = np.empty(max_seq, np.int32)
+    r = _check(lib.tlz4_parse_sequences(_ptr(p), len(p), _ptr32(lit_len),
+                                        _ptr32(match_len), _ptr32(match_off),
+                                        _ptr32(lit_src), max_seq))
+    return lit_len[:r], match_len[:r], match_off[:r], lit_src[:r]

@@ -10,7 +10,9 @@ Every entry point returns ``cudaGetLastError()`` after its launches; a
 non-zero code raises here.
 
 ``LAUNCHES`` counts, per kernel wrapper, the calls that went to the card.
-Nothing is imported or built when this module is imported.
+``tile_state`` keeps the tile counter and status words of the kernels whose
+tiles wait on earlier tiles (run lengths, block expansion).  Nothing is
+imported or built when this module is imported.
 """
 from __future__ import annotations
 
@@ -35,10 +37,14 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 #: wrapper name -> number of launches on a CUDA device
 LAUNCHES = {"sort_records": 0, "merge_sorted": 0, "probe": 0, "compact": 0,
             "pack": 0, "scan": 0, "chain": 0, "chain_wide": 0,
-            "run_lengths": 0, "gram_hash": 0, "walk": 0}
+            "run_lengths": 0, "gram_hash": 0, "walk": 0, "expand": 0}
+EPOCH_MAX = (1 << 30) - 1  # epochs of the status words of tile_state
 
 _lock = threading.Lock()
 _lib = None
+#: (kernel, device index, stream handle) -> [state, epoch of its last call]
+_STATE: dict = {}
+_STATE_LOCK = threading.Lock()
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -83,6 +89,11 @@ _SIGNATURES = {
     # n, base, search_len, max_candidates, ext_cap, stats (uint64 [2] or
     # null), stream
     "s4_walk": [_P] * 9 + [_I] * 6 + [_P, _P],
+    # payload, hist, ends, lit_len, match_len, match_off, lit_src, out,
+    # ptrs, state, B, pc, sc, oc, epoch, stream
+    "s4_expand": [_P] * 10 + [_I] * 4 + [ctypes.c_uint, _P],
+    # -> output positions a block of s4_expand resolves (no launch)
+    "s4_expand_tile": [],
 }
 
 
@@ -197,6 +208,25 @@ def on_cuda(t: torch.Tensor) -> bool:
     if t.device.type == "cpu":
         return False
     raise ValueError(f"unsupported device {t.device}")
+
+
+def tile_state(kernel: str, device: torch.device,
+               tiles: int) -> tuple[torch.Tensor, int]:
+    """The state of ``kernel``'s next call on ``device``'s current stream
+    and the call's epoch: int64 words, word 0 the tile counter, then room
+    for ``tiles`` status words.  Zeroed when made, grown, or when the
+    epochs run out; otherwise reused, since a status word carries the epoch
+    of the call that wrote it and a call's epoch is unique on its stream."""
+    key = (kernel, device.index, torch.cuda.current_stream(device).cuda_stream)
+    with _STATE_LOCK:
+        entry = _STATE.get(key)
+        if (entry is None or entry[0].numel() < tiles + 1
+                or entry[1] >= EPOCH_MAX):
+            entry = [torch.zeros(tiles + 1, dtype=torch.int64,
+                                 device=device), 0]
+            _STATE[key] = entry
+        entry[1] += 1
+        return entry[0], entry[1]
 
 
 def launch(counter: str, fn: str, device: torch.device, *args) -> None:

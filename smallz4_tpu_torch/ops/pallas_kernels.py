@@ -19,22 +19,12 @@ single-pass scan with decoupled look-back).
 """
 from __future__ import annotations
 
-import threading
-
 import torch
 
 from . import _cuda
 from .grams import hash20, to_i32
 
 GH_TILE = 256 * 128  # elements per tile of the reference's gram_hash kernel
-RL_EPOCH_MAX = (1 << 30) - 1  # epochs of csrc/runlen.cu's status words
-
-#: (device index, stream handle) -> [state, epoch of its last call]: the
-#: run-length kernel's tile counter and status words, zeroed once and reused
-#: by every call on that stream (its status words carry the call's epoch,
-#: so no call needs a reset launch); a call's epoch is unique on its stream
-_RL_STATE: dict = {}
-_RL_LOCK = threading.Lock()
 
 
 def _rows(x: torch.Tensor, name: str) -> torch.Tensor:
@@ -94,24 +84,8 @@ def run_lengths(x: torch.Tensor) -> torch.Tensor:
         xb = xb.clone()
     B, n = xb.shape
     out = torch.empty(B, n, dtype=torch.int32, device=xb.device)
-    state, epoch = _rl_state(xb.device,
-                             -(-B * n // _cuda.lib().s4_run_lengths_tile()))
+    tiles = -(-B * n // _cuda.lib().s4_run_lengths_tile())
+    state, epoch = _cuda.tile_state("run_lengths", xb.device, tiles)
     _cuda.launch("run_lengths", "s4_run_lengths", xb.device, xb.data_ptr(),
                  out.data_ptr(), state.data_ptr(), B, n, epoch)
     return out.reshape(x.shape)
-
-
-def _rl_state(device: torch.device, tiles: int) -> tuple[torch.Tensor, int]:
-    """The state of the next run-length call on ``device``'s current
-    stream (room for ``tiles`` status words) and its epoch; zeroed when
-    made, grown, or when the epochs run out."""
-    key = (device.index, torch.cuda.current_stream(device).cuda_stream)
-    with _RL_LOCK:
-        entry = _RL_STATE.get(key)
-        if (entry is None or entry[0].numel() < tiles + 1
-                or entry[1] >= RL_EPOCH_MAX):
-            entry = [torch.zeros(tiles + 1, dtype=torch.int64,
-                                 device=device), 0]
-            _RL_STATE[key] = entry
-        entry[1] += 1
-        return entry[0], entry[1]

@@ -646,3 +646,39 @@ class _Done:
 
     def result(self):
         return self._value
+
+
+def decompress(data, dictionary=None, device="cuda") -> bytes:
+    """Decode a frame with the device expansion (``ops.decoder``) on
+    ``device`` (a CUDA device runs csrc/expand.cu, the CPU the plain
+    version; a CUDA device without CUDA raises).
+
+    The host parses each block's sequence table as it goes; block
+    expansions chain through a 64 KB history window on the device, so
+    consecutive blocks dispatch without host round trips, with at most
+    four blocks' results in flight back to the host."""
+    from . import decoder
+
+    dev = resolve_device(device)
+    dec = decoder.BlockDecoder(fmt.MAX_BLOCK_SIZE_LEGACY, dev)
+    hist = dec.hist_device(bytes(dictionary)[-decoder.HIST_CAP:]
+                           if dictionary else b"")
+    out = bytearray()
+    fetch = decoder.Fetch()
+    for payload, tables, out_len in decoder.frame_blocks(data):
+        if tables is not None:
+            out_dev, _ = dec.decode_dev(payload, hist, tables)
+            fetch.put(out_dev, out_len)
+            hist = decoder._update_hist(hist, out_dev, out_len)
+        else:  # a stored block: its bytes as they are, its tail to history
+            fetch.put(payload, out_len)
+            take = min(out_len, decoder.HIST_CAP)
+            stored = np.zeros(decoder.HIST_CAP, np.uint8)  # left-aligned
+            stored[:take] = np.frombuffer(payload[-take:], np.uint8)
+            hist = decoder._update_hist(hist, decoder._upload(stored, dev),
+                                        take)
+        for item in fetch.drain(4):  # a small device pipeline in flight
+            out += memoryview(item)
+    for item in fetch.drain(0):
+        out += memoryview(item)
+    return bytes(out)

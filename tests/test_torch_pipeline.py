@@ -189,8 +189,8 @@ def test_levels_below_9_use_native():
 
 def test_unsupported_requests_raise(tiny):
     """A block size the chunk engine cannot take falls back to the sort
-    engine (warning only when 'chunk' was asked for); device decode is not
-    ported."""
+    engine (warning only when 'chunk' was asked for); the device decode
+    round-trips on the CPU and raises for a card without CUDA."""
     data = _mixed_stream(3 * C)
     _cuda.reset_counts()
     with warnings.catch_warnings():
@@ -203,8 +203,14 @@ def test_unsupported_requests_raise(tiny):
                          kernel="chunk") == fast
     with pytest.raises(ValueError, match="unknown device kernel"):
         _compress(data, block_size=2 * C, parity=False, kernel="bitonic")
-    with pytest.raises(NotImplementedError, match="decode"):
-        smallz4_tpu_torch.decompress(b"", engine="device")
+    # the device decode runs where it is asked to, and a card it is asked
+    # for without CUDA raises
+    assert smallz4_tpu_torch.decompress(fast, engine="device",
+                                        device="cpu") == data
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="cuda"):
+            smallz4_tpu_torch.decompress(fast, engine="device",
+                                         device="cuda")
     with pytest.raises(ValueError):
         smallz4_tpu_torch.compress(data, engine="tpu")
 
