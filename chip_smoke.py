@@ -56,13 +56,16 @@ network and no arguments.  Phases:
   3d. device decode: the block expansion (csrc/expand.cu) against its
      plain version, exact over all out_cap bytes, on real blocks (with and
      without history, a dictionary block), on its worst cases at 4 MiB (a
-     chain 1M deep, one run, offsets into the history, literals only) and
-     on a batch of 8 rows with 2 padding rows, timed, one launch of the
-     kernel a call on every case (torch.profiler); then
-     decompress(engine="device") on every stream of phases 3-3c and a
-     dictionary frame, and decompress_batch on 16 mixed frames, each equal
-     to its input, one expand launch a compressed block or batch round,
-     with the decode rates beside native.decompress's.
+     chain 1M deep, one run, offsets into the history, literals only,
+     sequence ends and offsets at tile edges) and on a batch of 8 rows
+     with 2 padding rows, timed, one launch of the kernel a call on every
+     case (torch.profiler); then decompress(engine="device") on every
+     stream of phases 3-3c and a dictionary frame, and decompress_batch on
+     16 mixed frames, each equal to its input, one expand launch a
+     compressed block or batch round, with the decode rates beside
+     native.decompress's; and the host side of one realcorpus device
+     decode stage by stage (parse, padding and uploads, expansion, copy
+     back; host clock).
 
 Prints a {"kernels": [...]} JSON line (each kernel's launches on its main
 path, error, kernel / plain / library time and bound; the chain once for
@@ -172,13 +175,15 @@ def cuda_ms(torch, fn, reps: int) -> float:
     return e0.elapsed_time(e1) / reps
 
 
-def device_ms(torch, fn, reps: int, name: str = "") -> tuple[float, float]:
+def device_ms(torch, fn, reps: int, name: str = "",
+              own: bool = False) -> tuple[float, float]:
     """(device time in ms, device launches of the kernels whose name holds
     ``name``, all by default) per call of fn(), from a torch.profiler trace
     of reps calls after one warm-up: the trace's raw kernel records (not
     copies, fills or the window's own annotation) that start inside the
     calls' time window, one per correlation id, their own intervals
-    summed, without the host's enqueue.  A trace that lost records holds
+    summed, without the host's enqueue; with ``own``, only the intervals of
+    the kernels whose name holds ``name``.  A trace that lost records holds
     no whole number of launches a call; traces are taken again, up to six,
     until one does, else the fullest one counts."""
     from torch.profiler import ProfilerActivity, profile, record_function
@@ -208,8 +213,8 @@ def device_ms(torch, fn, reps: int, name: str = "") -> tuple[float, float]:
             best = kernels
         if best and len(best) % reps == 0:
             break
-    return (sum(ns for ns, _ in best.values()) / 1e6 / reps,
-            sum(hit for _, hit in best.values()) / reps)
+    return (sum(ns for ns, hit in best.values() if hit or not own)
+            / 1e6 / reps, sum(hit for _, hit in best.values()) / reps)
 
 
 def max_err(torch, got, want) -> int:
@@ -460,7 +465,10 @@ def pack_rows(np, B: int, chunk: int, case: str, seed: int):
 
 
 EXPAND_CASES = ("deep chain", "one run", "history offsets", "literals only",
-                "padding")
+                "tile edges", "padding")
+# match offsets of the "tile edges" row: either side of 4 Ki and 8 Ki, and
+# the largest LZ4 offset
+EDGE_OFFSETS = (4095, 4096, 4097, 8191, 8192, 8193, 65535)
 
 
 def expand_row(np, case: str, n: int, seed: int):
@@ -472,7 +480,13 @@ def expand_row(np, case: str, n: int, seed: int):
     and one match at offset 1; "history offsets": random sequences
     (literals 0..3, matches 4..19 at offsets 1..65535, so chains leave the
     block through the history), then a literals-only sequence; "literals
-    only": one literal run; "padding": an empty row (out_len 0)."""
+    only": one literal run; "tile edges": sequences that end at k * 4096 - 1,
+    k * 4096 and k * 4096 + 1 in turn (one target a 4 Ki step), matches at
+    the EDGE_OFFSETS (lengths 4..19), now and then a match of 4,100..9,000
+    at an offset below 8 Ki (it overlaps itself across tiles), once the
+    row passes n/8 a literal run of 19,385 bytes and a match of 17,161 at
+    offset 1 (each longer than two 8 Ki tiles) where they fit, then a
+    literal run to the end; "padding": an empty row (out_len 0)."""
     rng = np.random.default_rng(seed)
     hist = rng.integers(0, 256, 65536, dtype=np.uint8)
     i32 = np.int32
@@ -491,6 +505,8 @@ def expand_row(np, case: str, n: int, seed: int):
     if case == "padding":
         return (np.zeros(0, np.uint8), hist,
                 tuple(np.zeros(0, i32) for _ in range(4)))
+    if case == "tile edges":
+        return _tile_edges_row(np, rng, hist, n)
     if case != "history offsets":
         raise ValueError(f"unknown case {case!r}")
     m = n // 12 + 1  # more sequences than the row can hold
@@ -503,6 +519,43 @@ def expand_row(np, case: str, n: int, seed: int):
     ll[k] = n - int(ends[k - 1] if k else 0)  # the final literal run
     ml[k], mo[k] = 0, 0
     ls = (np.cumsum(ll) - ll).astype(i32)
+    return (rng.integers(0, 256, int(ll.sum()), dtype=np.uint8), hist,
+            (ll, ml, mo, ls))
+
+
+def _tile_edges_row(np, rng, hist, n: int):
+    """expand_row's "tile edges" row (see there)."""
+    seqs = []  # (lit_len, match_len, match_off)
+    pos, step, long_done = 0, 0, False
+    while True:
+        target = (step // 3 + 1) * 4096 + step % 3 - 1
+        while target - pos < 8:  # past a long run: the next edge ahead
+            step += 3
+            target = (step // 3 + 1) * 4096 + step % 3 - 1
+        if target > n - 1:
+            break
+        if rng.integers(0, 8) == 0 and pos + 9003 < n:  # overlaps itself
+            seqs.append((int(rng.integers(0, 4)), int(rng.integers(4100, 9001)),
+                         int(rng.choice(EDGE_OFFSETS[:6]))))
+            pos += seqs[-1][0] + seqs[-1][1]
+            continue
+        while target - pos >= 30:
+            ll = int(rng.integers(0, 4))
+            seqs.append((ll, int(rng.integers(4, min(19, target - pos - ll - 7)
+                                              + 1)),
+                         int(rng.choice(EDGE_OFFSETS))))
+            pos += seqs[-1][0] + seqs[-1][1]
+        ll = int(rng.integers(0, min(3, target - pos - 4) + 1))
+        seqs.append((ll, target - pos - ll, int(rng.choice(EDGE_OFFSETS))))
+        pos = target
+        step += 1
+        if not long_done and pos >= n // 8 and pos + 36546 + 8 <= n:
+            seqs.append((19385, 17161, 1))  # 2 x 8192 + 3001, + 777
+            pos += 36546
+            long_done = True
+    seqs.append((n - pos, 0, 0))
+    ll, ml, mo = (np.asarray(c, np.int32) for c in zip(*seqs))
+    ls = (np.cumsum(ll) - ll).astype(np.int32)
     return (rng.integers(0, 256, int(ll.sum()), dtype=np.uint8), hist,
             (ll, ml, mo, ls))
 
@@ -618,24 +671,14 @@ def dictionary_frame(native, real: bytes):
     return data, native.compress(data, 9, dictionary=real[:h]), real[:h]
 
 
-def expand_cases(torch, np, dev, real: bytes, made, dframe) -> dict:
-    """Phase 3d, the kernel: s4_expand against its plain version, exact over
-    all out_cap bytes, on block 1 of the realcorpus frame of phase 3 (no
-    history) and block 2 (the history is block 1's tail), on the first
-    block of the dictionary frame, on the worst cases of expand_row at
-    4 MiB (a chain 1M deep, one run, offsets into the history, literals
-    only) and on a batch of 8 rows (6 blocks of the 1 MiB-block frame of
-    phase 3b, each with its history, and 2 padding rows).  The real blocks
-    must expand to their data.  Timed; the bound counts each row's real
-    payload, sequences and reachable history and all the output.  The
-    kernel must launch once a call on every case (torch.profiler, its
-    records by name; a call's other launches are the ends' add and
-    cumsum).  Returns the realcorpus
-    block's results, the others under "cases"."""
+def expand_rows(np, real: bytes, streams: dict, dframe):
+    """Phase 3d's expansion cases: (name -> rows (payload, hist, tables)),
+    (name -> the bytes its row must expand to, for the real blocks)), from
+    the "realcorpus" stream (4 MiB blocks) and the "realcorpus_1MiB" one
+    in ``streams`` and the dictionary frame ``dframe``."""
     from smallz4_tpu_torch.ops import decoder
 
     H, mib = decoder.HIST_CAP, 1 << 20
-    streams = {name: got for name, _, got in made}
 
     def block(frame, k, tail):
         payload, tables, _ = list(decoder.frame_blocks(frame))[k]
@@ -659,6 +702,27 @@ def expand_cases(torch, np, dev, real: bytes, made, dframe) -> dict:
     expect = {"realcorpus block 1": real[:4 * mib],
               "realcorpus block 2": real[4 * mib:8 * mib],
               "dictionary block": ddata}
+    return rows, expect
+
+
+def expand_cases(torch, np, dev, real: bytes, made, dframe) -> dict:
+    """Phase 3d, the kernel: s4_expand against its plain version, exact over
+    all out_cap bytes, on block 1 of the realcorpus frame of phase 3 (no
+    history) and block 2 (the history is block 1's tail), on the first block
+    of the dictionary frame, on the worst cases of expand_row at 4 MiB (a
+    chain 1M deep, one run, offsets into the history, literals only, tile
+    edges) and on a batch of 8 rows (6 blocks of the 1 MiB-block frame of
+    phase 3b, each with its history, and 2 padding rows). The real blocks
+    must expand to their data. Timed; the bound counts each row's real
+    payload, sequences and reachable history and all the output. The kernel
+    must launch once a call on every case (torch.profiler, its records by
+    name; a call's other launches are the ends' scan). Returns the
+    realcorpus block's results, the others under "cases"."""
+    from smallz4_tpu_torch.ops import decoder
+
+    H = decoder.HIST_CAP
+    rows, expect = expand_rows(np, real,
+                               {name: got for name, _, got in made}, dframe)
     cases = {}
     for name, rs in rows.items():
         pay, hist, tabs, oc = expand_batch(np, rs)
@@ -696,6 +760,60 @@ def expand_cases(torch, np, dev, real: bytes, made, dframe) -> dict:
     main_case = dict(cases.pop("realcorpus block 1"))
     main_case["cases"] = cases
     return main_case
+
+
+def decode_stages(torch, np, dev, frame: bytes, data: bytes,
+                  reps: int = 3) -> dict:
+    """Phase 3d, the host side of a device decode of ``frame`` (the
+    realcorpus stream at 4 MiB blocks): its stages on the host clock, each
+    ended by a sync, summed over the blocks, medians of ``reps`` runs, in
+    ms: the block walk with native.parse_sequences ("parse"), padding the
+    payload and tables and their uploads ("pad_upload", BlockDecoder.upload),
+    the expansion ("expand"), the copy of the block back and the history
+    update ("copy_back"); beside them one whole decompress(engine="device"),
+    which overlaps the copies back with the next blocks."""
+    import statistics
+
+    import smallz4_tpu_torch
+    from smallz4_tpu_torch import format as fmt
+    from smallz4_tpu_torch.ops import decoder
+
+    runs = {k: [] for k in ("parse", "pad_upload", "expand", "copy_back",
+                            "decompress")}
+    for _ in range(reps):
+        took = dict.fromkeys(runs, 0.0)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        blocks = list(decoder.frame_blocks(frame))
+        took["parse"] = time.perf_counter() - t
+        dec = decoder.BlockDecoder(fmt.MAX_BLOCK_SIZE_LEGACY, dev)
+        hist = dec.hist_device(b"")
+        out = bytearray()
+        for payload, tables, _ in blocks:
+            t = time.perf_counter()
+            pay, tabs, oc, out_len = dec.upload(payload, tables)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            res = decoder.expand_block(pay, hist[None], *tabs, out_cap=oc)[0]
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            out += res[:out_len].cpu().numpy().tobytes()
+            hist = decoder._update_hist(hist, res, out_len)
+            torch.cuda.synchronize()
+            t3 = time.perf_counter()
+            took["pad_upload"] += t1 - t
+            took["expand"] += t2 - t1
+            took["copy_back"] += t3 - t2
+        if bytes(out) != data:
+            raise AssertionError("staged decode != input")
+        t = time.perf_counter()
+        got = smallz4_tpu_torch.decompress(frame, engine="device")
+        took["decompress"] = time.perf_counter() - t
+        if got != data:
+            raise AssertionError("device decode != input")
+        for k, v in took.items():
+            runs[k].append(v * 1e3)
+    return {k: statistics.median(v) for k, v in runs.items()}
 
 
 def decode_run(torch, np, _cuda, native, api, real: bytes, made,
@@ -1088,6 +1206,13 @@ def main() -> int:
                                                dframe)
     decode_launches = decode_run(torch, np, _cuda, native, smallz4_tpu_torch,
                                  real, made, dframe)
+    stages = decode_stages(torch, np, dev, made[0][2], real)
+    log(f"[3d] decode stages, realcorpus at 4 MiB blocks (host clock, ms, "
+        f"the blocks summed, medians of 3): parse {stages['parse']:.3f}, "
+        f"pad+upload {stages['pad_upload']:.3f}, expand (synced) "
+        f"{stages['expand']:.3f}, copy back {stages['copy_back']:.3f}; sum "
+        f"{sum(v for k, v in stages.items() if k != 'decompress'):.3f}; "
+        f"decompress(engine=\"device\") {stages['decompress']:.3f}")
 
     results["sort_records", "chunk"]["sort_engine"]["launches"] = \
         sort_launches["sort_records"]

@@ -14,8 +14,16 @@ pointer is ``-(pool_index + 1)``.
 ``expand_block_plain`` (the reference's arithmetic: ``searchsorted``, the
 overlap contraction, synchronous pointer doubling until no pointer is live,
 one gather), a CUDA tensor ``csrc/expand.cu`` (one launch, no host sync;
-see its head).  ``decompress_batch`` decodes many frames, one expansion a
-round across the frames, the history of each chained on the device.
+see its head): a block of the kernel takes a tile of 8,192 positions in
+ticket order, looks its sequences up once (two warp searches of the ends,
+the tables staged in shared memory, a max-scan), resolves the chains inside
+the tile by pointer doubling in shared memory, publishes its pointers,
+chases the rest through earlier tiles with all of a thread's chases in
+flight together, and stores its bytes as 16-byte words; a tile inside one
+literal run copies the payload.  The wrapper computes the rows' ``ends``
+(the reference's cumsum) before the launch.  ``decompress_batch`` decodes
+many frames, one expansion a round across the frames, the history of each
+chained on the device.
 """
 from __future__ import annotations
 
@@ -111,7 +119,13 @@ def expand_block(payload, hist, lit_len, match_len, match_off, lit_src,
     _cuda.check_inputs(payload, hist, *tables)
     B, sc = lit_len.shape
     dev = payload.device
-    ends = torch.cumsum(lit_len + match_len, 1, dtype=torch.int32)
+    spans = lit_len + match_len
+    if B == 1:
+        ends = torch.cumsum(spans, 1, dtype=torch.int32)
+    else:  # a scan a row is slow for a few long rows: one scan over the
+        # batch, less what precedes each row
+        flat = torch.cumsum(spans.view(-1), 0, dtype=torch.int64).view(B, sc)
+        ends = (flat - (flat[:, :1] - spans[:, :1])).to(torch.int32)
     out = torch.empty(B, out_cap, dtype=torch.uint8, device=dev)
     ptrs = torch.empty(B, out_cap, dtype=torch.int32, device=dev)
     tile = _cuda.lib().s4_expand_tile()
@@ -203,13 +217,9 @@ class BlockDecoder:
         self.out_cap = out_cap
         self.device = torch.device(device)
 
-    def decode_dev(self, payload: bytes, hist_dev: torch.Tensor,
-                   tables=None):
-        """Dispatch one block expansion; history and output stay on the
-        device.  ``tables``: the payload's parsed sequence table, parsed
-        here if None.  Returns (out_dev [out bucket], out_len)."""
-        if tables is None:
-            tables = native.parse_sequences(payload)
+    def upload(self, payload: bytes, tables):
+        """One block's expansion inputs on the device, padded to their
+        buckets: (payload [1, pc], tables [4, 1, sc], out_cap, out_len)."""
         out_len = int(tables[0].sum() + tables[1].sum())
         if out_len > self.out_cap:
             raise ValueError("block exceeds declared maximum size")
@@ -218,8 +228,17 @@ class BlockDecoder:
         pay[0, :len(payload)] = np.frombuffer(payload, np.uint8)
         tabs = _upload(_pad_tables([tables], _bucket(len(tables[0]), 256)),
                        self.device)
-        res = expand_block(_upload(pay, self.device), hist_dev[None],
-                           *tabs, out_cap=oc)
+        return _upload(pay, self.device), tabs, oc, out_len
+
+    def decode_dev(self, payload: bytes, hist_dev: torch.Tensor,
+                   tables=None):
+        """Dispatch one block expansion; history and output stay on the
+        device.  ``tables``: the payload's parsed sequence table, parsed
+        here if None.  Returns (out_dev [out bucket], out_len)."""
+        if tables is None:
+            tables = native.parse_sequences(payload)
+        pay, tabs, oc, out_len = self.upload(payload, tables)
+        res = expand_block(pay, hist_dev[None], *tabs, out_cap=oc)
         return res[0], out_len
 
     def hist_device(self, hist: bytes) -> torch.Tensor:

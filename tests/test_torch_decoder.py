@@ -8,7 +8,8 @@ package's ``expand_block`` (jit on the CPU) and ``_expand_batch`` over all
 makes of the text, struct, run and random corpora, on a dictionary
 history, on a literals-only table, on the worst-case rows of
 ``chip_smoke.expand_row`` at 64 KiB (a 16 Ki-deep chain, one run, offsets
-into the history) and on a batch with a padding row.  The history update,
+into the history, literals only, sequence ends and offsets at tile edges)
+and on a batch with a padding row.  The history update,
 the frame decode (twins of tests/test_tpu_ops.py's decode tests, plus a
 legacy frame and a skippable prefix) and the batched decode (twins of
 tests/test_batch_decode.py) must equal the reference's arrays and bytes and
@@ -361,7 +362,8 @@ def _on(dev, pay, hist, tabs):
 
 # (case, output bytes)
 EXPAND_CUDA = ([(c, 1 << 22) for c in EXPAND_CASES if c != "padding"]
-               + [(c, n) for c in ("deep chain", "history offsets")
+               + [(c, n) for c in ("deep chain", "history offsets",
+                                   "tile edges")
                   for n in (4096, 8192 + 4, 100004)])
 
 
@@ -396,6 +398,25 @@ def test_expand_kernel_batch_of_unequal_rows_cuda():
     args = _on(dev, pay, hist, tabs)
     got = decoder.expand_block(*args, out_cap=oc)
     assert torch.equal(got, decoder.expand_block_plain(*args, out_cap=oc))
+
+
+@pytest.mark.cuda
+def test_expand_kernel_rows_ending_mid_tile_cuda():
+    """A batch whose rows end inside a tile, one position either side of a
+    tile edge and in its middle, on an out_cap past every row, exact over
+    all out_cap bytes, also on an out_cap that is no multiple of 16 (the
+    rows' starts off the 16-byte stores)."""
+    dev = _cuda_or_skip()
+    tile = _cuda.lib().s4_expand_tile()
+    rows = [expand_row(np, c, n, i) for i, (c, n) in enumerate(
+        [("tile edges", 3 * tile - 4), ("history offsets", 3 * tile + 4),
+         ("deep chain", tile + tile // 2), ("tile edges", 5 * tile + 1028),
+         ("one run", 2 * tile - 8), ("literals only", tile + 12)])]
+    pay, hist, tabs, oc = expand_batch(np, rows)
+    args = _on(dev, pay, hist, tabs)
+    for cap in (oc, oc + 4099):
+        assert torch.equal(decoder.expand_block(*args, out_cap=cap),
+                           decoder.expand_block_plain(*args, out_cap=cap))
 
 
 @pytest.mark.cuda
