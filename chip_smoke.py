@@ -23,8 +23,10 @@ network and no arguments.  Phases:
   2b. sort-engine kernels: on one full match_segments dispatch (8 segments
      of the fixture, a live boundary cut in row 0, one padding row), the
      record sort at [8, 5, 2^17] with two keys, the neighbour scan (with the
-     unsort), the chain (14 steps) and the run lengths against their plain
-     versions; plus the device time of one whole dispatch;
+     unsort; two launches a call, its bound from the operations that
+     scan_work counts on these records), the chain (14 steps) and the run
+     lengths against their plain versions; plus the device time of one
+     whole dispatch;
   2c. walk-engine kernels: on the same dispatch, the run lengths at
      [8, 133119], gram_hash and the walk (max_candidates=64, ext_cap=512)
      against their plain versions; the walk's achieved GB/s over its staged
@@ -37,9 +39,12 @@ network and no arguments.  Phases:
      all come before the halo's, all after them, or interleaved at random,
      the pack at [64, 65536] on rows where every position is a head, slot
      0 is the only head (conv and lk all ones) or the heads lie in the last
-     eighth (conv and lk all zeros), at the production shapes, exact and
-     timed; a chain row longer than the one-launch path takes chain_wide;
-     each of these kernels must be one device launch a call;
+     eighth (conv and lk all zeros), at the production shapes, the scan
+     on the rows of scan_rows at [8, 5, 2^17] (one gram, distinct grams,
+     position order, every record invalid), exact and timed; a chain row
+     longer than the one-launch path takes chain_wide, a scan row longer
+     than the two-kernel route scan_direct; each of these kernels must be
+     one device launch a call, the scan two;
   3. chunk engine end to end, with SMALLZ4_TPU_CPU_ASSIST=0 so every block
      goes through the device: compress(data, 9) on the 10 MB fixture
      (modern and legacy) and on make_corpus(8 MiB) must equal
@@ -70,7 +75,8 @@ network and no arguments.  Phases:
 Prints a {"kernels": [...]} JSON line (each kernel's launches on its main
 path, error, kernel / plain / library time and bound; the chain once for
 the chunk engine and once for the sort engine, the run lengths once for the
-sort engine and once for the walk engine, the expansion for the decode),
+sort engine and once for the walk engine, scan_direct for phase 2d's long
+scan rows, the expansion for the decode),
 the nvidia-smi line,
 and as the last line {"ok": true, "device": {...}}.  Any failure raises
 (exit != 0) before that line.
@@ -107,6 +113,10 @@ KERNELS = [  # (counter, source, replaced TPU kernel, engine path)
      "smallz4_tpu/ops/chunkmatch.py:428", "chunk"),
     ("scan", "smallz4_tpu_torch/csrc/sortmatch.cu",
      "smallz4_tpu/ops/sortmatch.py:102", "sort"),
+    # the scan's one-launch route: small batches and rows past
+    # s4_scan_row_max (phase 2d)
+    ("scan_direct", "smallz4_tpu_torch/csrc/sortmatch.cu",
+     "smallz4_tpu/ops/sortmatch.py:102", "long rows"),
     ("chain", "smallz4_tpu_torch/csrc/sortmatch.cu",
      "smallz4_tpu/ops/sortmatch.py:159", "sort"),
     ("run_lengths", "smallz4_tpu_torch/csrc/runlen.cu",
@@ -180,12 +190,17 @@ def device_ms(torch, fn, reps: int, name: str = "",
     """(device time in ms, device launches of the kernels whose name holds
     ``name``, all by default) per call of fn(), from a torch.profiler trace
     of reps calls after one warm-up: the trace's raw kernel records (not
-    copies, fills or the window's own annotation) that start inside the
+    copies, fills or the window's own annotation) launched inside the
     calls' time window, one per correlation id, their own intervals
     summed, without the host's enqueue; with ``own``, only the intervals of
-    the kernels whose name holds ``name``.  A trace that lost records holds
-    no whole number of launches a call; traces are taken again, up to six,
-    until one does, else the fullest one counts."""
+    the kernels whose name holds ``name``.  A kernel belongs to the window
+    when the host-side launch that shares its correlation id lies inside
+    it, both ends on the host's clock (the card's timestamps, converted,
+    stray by hundreds of microseconds from the host's).  A session can
+    lose the records of its first call's kernels, so each session makes
+    one more warm-up call before its window.  A trace that lost the record
+    of a launch in the window is taken again, up to six times, until one
+    holds them all, else the fullest one counts."""
     from torch.profiler import ProfilerActivity, profile, record_function
 
     fn()
@@ -194,6 +209,8 @@ def device_ms(torch, fn, reps: int, name: str = "",
     for _ in range(6):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
             with record_function("timed calls"):
                 for _ in range(reps):
                     fn()
@@ -203,15 +220,18 @@ def device_ms(torch, fn, reps: int, name: str = "",
                    for e in events]
         window = next(e for e, card in zip(events, on_card)
                       if not card and e.name() == "timed calls")
+        launched = {e.correlation_id() for e, card in zip(events, on_card)
+                    if not card and "Launch" in e.name()
+                    and window.start_ns() <= e.start_ns() <= window.end_ns()}
         kernels = {e.correlation_id(): (e.end_ns() - e.start_ns(),
                                         name in e.name())
                    for e, card in zip(events, on_card)
                    if card and e.name() != "timed calls"
                    and not e.name().startswith(("Memcpy", "Memset"))
-                   and window.start_ns() <= e.start_ns() <= window.end_ns()}
+                   and e.correlation_id() in launched}
         if len(kernels) > len(best):
             best = kernels
-        if best and len(best) % reps == 0:
+        if best and len(best) == len(launched):
             break
     return (sum(ns for ns, hit in best.values() if hit or not own)
             / 1e6 / reps, sum(hit for _, hit in best.values()) / reps)
@@ -351,14 +371,19 @@ def walk_stage_stats(torch, _cuda, wargs, want) -> tuple[int, int, int]:
 
 
 def worst_cases(torch, np, _cuda, sm, pk, cm, dev, chunk_shape, sort_shape,
-                walk_shape) -> None:
+                walk_shape, scan_shape) -> dict:
     """Phase 2d: the run lengths on rows that are one run and on
     alternating runs of a tile's length, each across a tile edge, at the
     sort and walk shapes; the chain on rows of distance 1 and length 20
     (every claim grows to its row's end) at the chunk and sort shapes; the
     compaction and the pack on the rows of compact_rows and pack_rows at
-    the chunk shape; and a row longer than the one-launch chain path.
-    Exact, and timed."""
+    the chunk shape; the scan at ``scan_shape`` on the rows of scan_rows
+    (one gram, distinct grams, position order, every record invalid; two
+    launches a call, its probe and unsort kernels); a row longer than the
+    one-launch chain path and one longer than the scan's two-kernel route
+    (scan_direct).
+    Exact, and timed; returns scan_direct's record for the kernels
+    line."""
     tile = _cuda.lib().s4_run_lengths_tile()
     B, CH = chunk_shape
     cases = {}
@@ -391,13 +416,21 @@ def worst_cases(torch, np, _cuda, sm, pk, cm, dev, chunk_shape, sort_shape,
                                                                steps),
             lambda lens=lens, ones=ones, steps=steps: sm.chain_plain(
                 lens, ones, steps))
+    # the scan: its probe and unsort kernels, two launches a call
+    SB, _, SN = scan_shape
+    for seed, case in enumerate(c for c in SCAN_CASES if c != "mixed"):
+        rec = torch.from_numpy(scan_rows(np, case, SB, SN, seed)).to(dev)
+        cases[f"scan [{SB}, 5, {SN}] {case}"] = (
+            lambda rec=rec: sm.neighbor_scan(rec),
+            lambda rec=rec: sm.neighbor_scan_plain(rec))
     for name, (kern, plain) in cases.items():
         err = max_err(torch, kern(), plain())
         ms = cuda_ms(torch, kern, 10)
         dev_ms, per_call = device_ms(torch, kern, 5)
         log(f"[2d] {name}: max_abs_err {err}  kernel {ms:.4f} ms (device "
             f"{dev_ms:.4f} ms, {per_call:g} launches a call)")
-        if err != 0 or per_call != 1:
+        want = 2 if name.startswith("scan") else 1
+        if err != 0 or per_call != want:
             raise AssertionError(f"{name}: error {err}, {per_call} launches")
     n = _cuda.lib().s4_chain_row_max() + 7
     rng = np.random.default_rng(6)
@@ -411,6 +444,135 @@ def worst_cases(torch, np, _cuda, sm, pk, cm, dev, chunk_shape, sort_shape,
         f"{n - 7}): max_abs_err {err}, launches {took}")
     if err != 0 or took != {"chain": 0, "chain_wide": 1}:
         raise AssertionError(f"wide chain: error {err}, launches {took}")
+    # a scan row past the two-kernel route: scan_direct, timed for its
+    # record, its launches counted from 0 over one call
+    n = _cuda.lib().s4_scan_row_max() + 7
+    rec = torch.from_numpy(scan_rows(np, "mixed", 2, n, 7)).to(dev)
+    direct = check_kernels(torch, {"scan_direct": (
+        lambda: sm.neighbor_scan(rec), lambda: sm.neighbor_scan_plain(rec),
+        (rec[:, 0], rec[:, 2:]), scan_work(torch, rec)["ops"])}, "2d",
+        f"2 x {n} records, past the two-kernel route's {n - 7}"
+    )["scan_direct"]
+    _cuda.reset_counts()
+    sm.neighbor_scan(rec)
+    took = {k: _cuda.LAUNCHES[k] for k in ("scan", "scan_direct")}
+    log(f"[2d] scan [2, 5, {n}]: launches {took}")
+    if took != {"scan": 0, "scan_direct": 1}:
+        raise AssertionError(f"long scan rows: launches {took}")
+    direct["launches"] = took["scan_direct"]
+    return direct
+
+
+def sort_dispatch(torch, np, dev, real: bytes) -> types.SimpleNamespace:
+    """Phase 2b's segment dispatch: 7 segments of ``real`` from 1 MiB (the
+    block's boundary cut live in row 0) and one padding row, on ``dev``:
+    its inputs (sbufs, sv, ev, scut, sfin), the searched positions, the
+    unsorted records ``rec`` [8, 5, 2^17] and the sorted ``srec`` (two
+    keys, as match_segments sorts them)."""
+    from smallz4_tpu_torch.ops import pipeline, sortnet
+    from smallz4_tpu_torch.ops import sortmatch as sm
+
+    s_start, s_bs = 1 << 20, 7 * pipeline.SEG
+    seg_group = list(range(s_start, s_start + s_bs, pipeline.SEG))
+    arrays = pipeline.segment_group(np.frombuffer(real, np.uint8), s_start,
+                                    s_start + s_bs, seg_group, False, True)
+    sbufs, sv, ev, scut, sfin = (torch.from_numpy(a).to(dev) for a in arrays)
+    rec, _ = sm.segment_records(sbufs, sv, ev, scut)
+    return types.SimpleNamespace(
+        sbufs=sbufs, sv=sv, ev=ev, scut=scut, sfin=sfin, rec=rec,
+        srec=sortnet.sort_records(rec, n_keys=2),
+        searched=sum(min(pipeline.SEG, s_start + s_bs - s0)
+                     for s0 in seg_group))
+
+
+SCAN_CASES = ("one gram", "distinct grams", "position order",
+              "every record invalid", "mixed")
+SCAN_INVALID = 1 << 30  # pos_t offset of a record that may not match
+
+
+def scan_rows(np, case: str, B: int, n: int, seed: int):
+    """Sorted records int32 [B, 5, n] (k1, k2, pos_t, e1, e2) for the
+    neighbour scan, each row sorted by (k1, k2) unsigned then pos_t, as
+    sort_records(n_keys=2) sorts them, its raw positions a permutation of
+    [0, n).  "mixed": 12 grams in long groups, a fifth of the records
+    invalid (+2^30), k2 with equal high halves in a third of the records,
+    payload bytes of 3 values (LCPs of every length); "one gram": one gram
+    across the row (every probe meets its gram), else as "mixed";
+    "distinct grams": every gram distinct (no probe gets past its compare);
+    "position order": grams pos >> 6, k2 0, all valid, so the slots are the
+    positions (the stores of a scatter by position coalesce); "every record
+    invalid": "mixed" with every record +2^30."""
+    if case not in SCAN_CASES:
+        raise ValueError(f"unknown case {case!r}")
+    rng = np.random.default_rng(seed)
+    out = np.empty((B, 5, n), np.int32)
+    for b in range(B):
+        raw = rng.permutation(n).astype(np.int64)
+        k2 = rng.integers(0, 1 << 32, n, dtype=np.uint64).astype(np.uint32)
+        k2[:n // 3] &= np.uint32(0xFFFF0000)
+        k1 = (rng.integers(0, 12, n).astype(np.uint32)
+              * np.uint32(0x01010101))
+        invalid = rng.random(n) < 0.2
+        if case == "one gram":
+            k1[:] = 0x61616161
+        elif case == "distinct grams":  # an odd factor is a bijection
+            k1 = rng.permutation(n).astype(np.uint32) * np.uint32(0x9E3779B1)
+        elif case == "position order":
+            raw = np.arange(n, dtype=np.int64)
+            k1 = (raw >> 6).astype(np.uint32)
+            k2[:] = 0
+            invalid[:] = False
+        elif case == "every record invalid":
+            invalid[:] = True
+        pos_t = np.where(invalid, raw + SCAN_INVALID, raw).astype(np.int32)
+        e = rng.integers(0, 3, (n, 8), dtype=np.uint8)
+        planes = (k1, k2, pos_t, e[:, :4].copy().view("<u4").ravel(),
+                  e[:, 4:].copy().view("<u4").ravel())
+        order = np.lexsort((pos_t, k2, k1))
+        out[b] = np.stack([p[order].view(np.int32) for p in planes])
+    return out
+
+
+# integer operations of the scan's work, counted from its data (scan_work):
+# a probe that reads its neighbour's gram (load, compare and exit test), a
+# probe that meets its gram (distance and its range test), a candidate
+# (two xors, the byte count of the 64-bit xor, the score and its max)
+SCAN_OPS_COMPARE = 3
+SCAN_OPS_LIVE = 2
+SCAN_OPS_CANDIDATE = 8
+
+
+def scan_work(torch, srec) -> dict:
+    """The neighbour scan's work on sorted records [B, 5, n], counted with
+    tensor ops: "slots"; "in_range", probes inside the row (what a scan
+    without an early exit compares); "compared", probes up to and with the
+    first one in each direction whose gram differs (equal grams are
+    contiguous in a sorted row, so none past it can meet its gram); "live",
+    probes that meet their gram; "candidates", live probes at a distance of
+    1..65535; "ops", the integer operations of that work (SCAN_OPS_*)."""
+    from smallz4_tpu_torch.ops import sortmatch as sm
+
+    B, _, n = srec.shape
+    k1, pos = srec[:, 0], srec[:, 2]
+    slot = torch.arange(n, device=srec.device)
+    work = dict.fromkeys(("in_range", "compared", "live", "candidates"), 0)
+    for sgn in (1, -1):
+        still = torch.ones_like(k1, dtype=torch.bool)  # nearer grams equal
+        for sk in sm.PROBES:
+            k = sk * sgn
+            in_range = (slot + k >= 0) & (slot + k < n)
+            eq = in_range & (torch.roll(k1, -k, -1) == k1)
+            d = pos - torch.roll(pos, -k, -1)
+            work["in_range"] += int(in_range.sum()) * B
+            work["compared"] += int((in_range & still).sum())
+            work["live"] += int(eq.sum())
+            work["candidates"] += int((eq & (d >= 1) & (d <= 65535)).sum())
+            still = still & eq
+    work["slots"] = B * n
+    work["ops"] = (SCAN_OPS_COMPARE * work["compared"]
+                   + SCAN_OPS_LIVE * work["live"]
+                   + SCAN_OPS_CANDIDATE * work["candidates"])
+    return work
 
 
 COMPACT_ORDERS = ("current first", "halo first", "interleaved")
@@ -1013,25 +1175,25 @@ def main() -> int:
         f"{G * CH / group_ms / 1e3:.2f} MB/s device-only match rate")
 
     # -- phase 2b: sort-engine kernels against their plain versions --------
-    # 7 segments of the block at 1 MiB (boundary cut in row 0) + 1 padding
-    s_start, s_bs = 1 << 20, 7 * pipeline.SEG
-    varr = np.frombuffer(real, np.uint8)
-    seg_group = list(range(s_start, s_start + s_bs, pipeline.SEG))
-    arrays = pipeline.segment_group(varr, s_start, s_start + s_bs, seg_group,
-                                    False, True)
-    sbufs, sv, ev, scut, sfin = (torch.from_numpy(a).to(dev) for a in arrays)
+    disp = sort_dispatch(torch, np, dev, real)
+    sbufs, sv, ev, scut, sfin = (disp.sbufs, disp.sv, disp.ev, disp.scut,
+                                 disp.sfin)
+    rec, srec = disp.rec, disp.srec
     B, n = pipeline.SEG_BATCH, sm.N_ENTRIES
-    rec, _ = sm.segment_records(sbufs, sv, ev, scut)
-    srec = sortnet.sort_records(rec, n_keys=2)
     lens0, dists0, _ = sm.neighbor_scan(srec)
     rl_in = sbufs[:, :n].contiguous()
+    work = scan_work(torch, srec)
+    log(f"[2b] scan work on this dispatch: {work['slots']} slots, "
+        f"{work['in_range']} probes in range, {work['compared']} compared "
+        f"up to the first other gram, {work['live']} meet their gram, "
+        f"{work['candidates']} candidates; {work['ops']} counted operations")
     scases = {
         "sort_records": (lambda: sortnet.sort_records(rec, n_keys=2),
                          lambda: sortnet.sort_records_plain(rec, n_keys=2),
                          (rec,), B * n * 17 * 3),
         "scan": (lambda: sm.neighbor_scan(srec),
                  lambda: sm.neighbor_scan_plain(srec),
-                 (srec[:, 0], srec[:, 2:]), B * n * 2 * len(sm.PROBES) * 10),
+                 (srec[:, 0], srec[:, 2:]), work["ops"]),
         "chain": (lambda: sm.chain(lens0, dists0, 14),
                   lambda: sm.chain_plain(lens0, dists0, 14),
                   (lens0, dists0), B * n * 14 * 6),
@@ -1042,6 +1204,12 @@ def main() -> int:
     sresults = check_kernels(torch, scases, "2b",
                              f"{B} x {n} records, one dispatch")
     require_one_launch(sresults, ("chain", "run_lengths"), "2b")
+    scan_calls = sresults["scan"]["device_launches_per_call"]
+    log(f"[2b] scan          {scan_calls:g} device launches a call (its "
+        f"probe and unsort kernels; torch.profiler)")
+    if scan_calls != 2:
+        raise AssertionError(f"scan: {scan_calls} device launches a call, "
+                             f"not 2")
     log_sort_rate(_cuda, "2b", "sort_records", sresults["sort_records"], rec,
                   False)
     results = {(k, "chunk"): v for k, v in results.items()}
@@ -1069,11 +1237,12 @@ def main() -> int:
         return sm.match_segments(sbufs, sv, ev, scut, sfin)
 
     disp_ms = cuda_ms(torch, dispatch, 5)
-    searched = int(sum(min(pipeline.SEG, s_start + s_bs - s0)
-                       for s0 in seg_group))
+    disp_dev, disp_launches = device_ms(torch, dispatch, 3)
+    searched = disp.searched
     log(f"[2b] match_segments, one dispatch ({B} rows, {searched} searched "
         f"positions): {disp_ms:.3f} ms device = "
-        f"{searched / disp_ms / 1e3:.2f} MB/s device-only match rate")
+        f"{searched / disp_ms / 1e3:.2f} MB/s device-only match rate; "
+        f"profiler {disp_dev:.4f} ms device in {disp_launches:g} launches")
 
     # -- phase 2c: walk-engine kernels against their plain versions -------
     base, wk = mf.HALO, 64
@@ -1119,8 +1288,8 @@ def main() -> int:
         f"{searched / wdisp_ms / 1e3:.2f} MB/s device-only match rate")
 
     # -- phase 2d: worst cases of the chain, run lengths, compact, pack ----
-    worst_cases(torch, np, _cuda, sm, pk, cm, dev, (G, CH), (B, n),
-                (B, mf.SEG_BUF))
+    scan_direct = worst_cases(torch, np, _cuda, sm, pk, cm, dev, (G, CH),
+                            (B, n), (B, mf.SEG_BUF), tuple(srec.shape))
 
     # -- phase 3: chunk engine end to end ---------------------------------
     def chunk_expected(data, block):
@@ -1216,8 +1385,10 @@ def main() -> int:
 
     results["sort_records", "chunk"]["sort_engine"]["launches"] = \
         sort_launches["sort_records"]
+    results["scan_direct", "long rows"] = scan_direct
     path_launches = {"chunk": launches, "sort": sort_launches,
-                     "walk": walk_launches, "decode": decode_launches}
+                     "walk": walk_launches, "decode": decode_launches,
+                     "long rows": {"scan_direct": scan_direct["launches"]}}
     kernels = [{"name": name, "route": "cuda", "source": src,
                 "replaces": rep, "path": path,
                 "launches": path_launches[path][name],

@@ -36,8 +36,9 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 #: wrapper name -> number of launches on a CUDA device
 LAUNCHES = {"sort_records": 0, "merge_sorted": 0, "probe": 0, "compact": 0,
-            "pack": 0, "scan": 0, "chain": 0, "chain_wide": 0,
-            "run_lengths": 0, "gram_hash": 0, "walk": 0, "expand": 0}
+            "pack": 0, "scan": 0, "scan_direct": 0, "chain": 0,
+            "chain_wide": 0, "run_lengths": 0, "gram_hash": 0, "walk": 0,
+            "expand": 0}
 EPOCH_MAX = (1 << 30) - 1  # epochs of the status words of tile_state
 
 _lock = threading.Lock()
@@ -71,8 +72,17 @@ _SIGNATURES = {
     # -> the largest chunk and row count of s4_pack (no launch)
     "s4_pack_max_chunk": [],
     "s4_pack_max_rows": [],
+    # rec, olen, odist, oflag, entries, table, B, n, stream
+    "s4_scan": [_P, _P, _P, _P, _P, _P, _I, _I, _P],
     # rec, olen, odist, oflag, B, n, stream
-    "s4_scan": [_P, _P, _P, _P, _I, _I, _P],
+    "s4_scan_direct": [_P, _P, _P, _P, _I, _I, _P],
+    # -> longest row and most rows of s4_scan, most records of a batch the
+    # wrapper sends to s4_scan_direct (no launch)
+    "s4_scan_row_max": [],
+    "s4_scan_max_rows": [],
+    "s4_scan_direct_max": [],
+    # n -> int32 words of s4_scan's table a row (no launch)
+    "s4_scan_table_row": [_I],
     # lens, dists, out, B, n, steps, stream
     "s4_chain": [_P, _P, _P, _I, _I, _I, _P],
     # -> longest row of s4_chain (no launch)

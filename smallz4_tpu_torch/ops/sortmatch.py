@@ -101,19 +101,38 @@ def neighbor_scan_plain(rec: torch.Tensor):
 def neighbor_scan(rec: torch.Tensor):
     """Neighbour probes over sorted records ``[B, 5, n]`` (planes k1, k2,
     pos_t, e1, e2; the raw positions ``pos_t & (2^30-1)`` of each row a
-    permutation of [0, n)).  Returns (best_len 0 or 4..12, best_dist,
-    flags: bit 0 ext-capped, bit 1 gram group beyond the contiguous probes),
-    int32 ``[B, n]`` each, in position order (the reference's scan followed
-    by its unsort)."""
+    permutation of [0, n), and equal k1 contiguous in each row, as
+    ``sortnet.sort_records`` leaves them).  Returns (best_len 0 or 4..12,
+    best_dist, flags: bit 0 ext-capped, bit 1 gram group beyond the
+    contiguous probes), int32 ``[B, n]`` each, in position order (the
+    reference's scan followed by its unsort).  On the card a batch of more
+    than ``s4_scan_direct_max()`` records in rows of up to
+    ``s4_scan_row_max()`` slots takes ``scan`` (the probe kernel, which
+    groups each tile's results by position span, and the unsort kernel, a
+    span a block); a smaller batch or a longer row takes ``scan_direct``
+    (the probe kernel storing each result at its position, one launch)."""
     _check_records(rec)
     if not _cuda.on_cuda(rec):
         return neighbor_scan_plain(rec)
     rec = rec.contiguous()
     B, _, n = rec.shape
-    out = [torch.empty(B, n, dtype=torch.int32, device=rec.device)
-           for _ in range(3)]
-    _cuda.launch("scan", "s4_scan", rec.device, rec.data_ptr(),
-                 *(o.data_ptr() for o in out), B, n)
+    lib = _cuda.lib()
+    if B > lib.s4_scan_max_rows():
+        raise ValueError(f"the scan takes at most {lib.s4_scan_max_rows()} "
+                         f"rows, got {B}")
+
+    def plane(width=n):
+        return torch.empty(B, width, dtype=torch.int32, device=rec.device)
+
+    out = [plane() for _ in range(3)]
+    ptrs = [o.data_ptr() for o in out]
+    if n <= lib.s4_scan_row_max() and B * n > lib.s4_scan_direct_max():
+        entries, table = plane(), plane(lib.s4_scan_table_row(n))
+        _cuda.launch("scan", "s4_scan", rec.device, rec.data_ptr(), *ptrs,
+                     entries.data_ptr(), table.data_ptr(), B, n)
+    else:
+        _cuda.launch("scan_direct", "s4_scan_direct", rec.device,
+                     rec.data_ptr(), *ptrs, B, n)
     return tuple(out)
 
 

@@ -12,11 +12,19 @@ import numpy as np
 import pytest
 import torch
 
-from smallz4_tpu_torch.ops import _cuda
+from chip_smoke import SCAN_CASES, scan_rows
+from smallz4_tpu_torch.ops import _cuda, sortnet
 from smallz4_tpu_torch.ops import sortmatch as tsm
 
 INVALID = 1 << 30
 SCAN_SIZES = [1024, 2048]
+# (family of chip_smoke.scan_rows or None for _sorted_planes, n): the
+# worst cases of the scan at 1,024 slots, and "mixed" rows at n = 1,000
+SCAN_REF_CASES = ([(None, n) for n in SCAN_SIZES]
+                  + [(c, 1024) for c in SCAN_CASES if c != "mixed"]
+                  + [("mixed", 1000)])
+SCAN_REF_IDS = [str(n) if c is None else f"{c}-{n}"
+                for c, n in SCAN_REF_CASES]
 # (seed, start_valid, end_valid, cut_boundary, limit_final)
 SEGMENT_CASES = ([(s, 0, 1024, c, f) for s in (7, 11)
                   for c in (False, True) for f in (False, True)]
@@ -39,6 +47,28 @@ def _sorted_planes(n, seed):
     e2 = e[:, 4:].copy().view("<u4").ravel()
     order = np.lexsort((pos_t, k2, k1))
     return [p[order].view(np.int32) for p in (k1, k2, pos_t, e1, e2)]
+
+
+def _scan_planes(family, n):
+    """One sorted record row [5, n] of SCAN_REF_CASES (int32 numpy)."""
+    if family is None:
+        return np.stack(_sorted_planes(n, seed=n))
+    return scan_rows(np, family, 1, n, seed=n)[0]
+
+
+def _padded_to_lanes(planes):
+    """The reference's scan takes rows of a multiple of 128 slots: append
+    records whose grams no record of the row has (so no probe meets them)
+    at the raw positions n, n + 1, ... (so its unsort keeps the row's
+    results first)."""
+    n = planes.shape[1]
+    extra = -n % 128
+    pad = np.zeros((5, extra), np.int32)
+    free = np.setdiff1d(np.arange(extra + 1 + len(np.unique(planes[0]))),
+                        planes[0].astype(np.int64))[:extra]
+    pad[0] = free
+    pad[2] = np.arange(n, n + extra)
+    return np.concatenate([planes, pad], axis=1)
 
 
 def _chain_inputs(n, seed):
@@ -108,13 +138,14 @@ def ref():
 
     out = {}
     with pltpu.force_tpu_interpret_mode():
-        for n in SCAN_SIZES:
-            k1, _, pos, e1, e2 = map(jnp.asarray, _sorted_planes(n, seed=n))
+        for family, n in SCAN_REF_CASES:
+            planes = _padded_to_lanes(_scan_planes(family, n))
+            k1, _, pos, e1, e2 = map(jnp.asarray, planes)
             blen, bdist, bflag = sortmatch._neighbor_scan(k1, pos, e1, e2)
             raw = (pos & (INVALID - 1)).view(jnp.uint32)
             _, *unsorted = sortnet.sort_records(raw, blen, bdist, bflag,
                                                 n_keys=1)
-            out["scan", n] = [np.asarray(u) for u in unsorted]
+            out["scan", family, n] = [np.asarray(u)[:n] for u in unsorted]
         lens, dists = _chain_inputs(1024, seed=5)
         out["chain"] = np.asarray(sortmatch._chain(
             jnp.asarray(lens), jnp.asarray(dists), 10))
@@ -135,14 +166,41 @@ def ref():
     return out
 
 
-@pytest.mark.parametrize("n", SCAN_SIZES)
-def test_neighbor_scan_equals_reference_scan_and_unsort(ref, n):
-    rec = torch.from_numpy(np.stack(_sorted_planes(n, seed=n)))[None]
+@pytest.mark.parametrize("family,n", SCAN_REF_CASES, ids=SCAN_REF_IDS)
+def test_neighbor_scan_equals_reference_scan_and_unsort(ref, family, n):
+    rec = torch.from_numpy(_scan_planes(family, n))[None]
     got = tsm.neighbor_scan(rec)
-    for g, want in zip(got, ref["scan", n]):
+    for g, want in zip(got, ref["scan", family, n]):
         assert g.dtype == torch.int32 and g.shape == (1, n)
         np.testing.assert_array_equal(g[0].numpy(), want)
-    assert (got[0] > 0).any() and (got[2] & 2).any()  # claims and groups
+    if family == "distinct grams":  # no probe meets its gram
+        assert not got[0].any() and not got[2].any()
+    else:
+        assert (got[0] > 0).any() and (got[2] & 2).any()  # claims, groups
+
+
+def _k1_contiguous(k1: np.ndarray) -> bool:
+    """Every gram of the row occupies one run of slots."""
+    runs = 1 + int(np.count_nonzero(k1[1:] != k1[:-1]))
+    return runs == len(np.unique(k1))
+
+
+@pytest.mark.parametrize("case", SEGMENT_CASES + ["batch"], ids=str)
+def test_sorted_segment_records_keep_grams_contiguous(case):
+    """The scan kernel stops probing at the first other gram: it relies on
+    segment_records followed by sort_records(n_keys=2) leaving equal k1 in
+    one run of slots in every row."""
+    if case == "batch":
+        bufs, sv, ev, cut, _ = map(torch.from_numpy, _batch_inputs())
+        rec, _ = tsm.segment_records(bufs, sv, ev, cut)
+    else:
+        seed, sv, ev, cut, _ = case
+        rec, _ = tsm.segment_records(
+            torch.from_numpy(_segment_buf(seed))[None], sv, ev, cut, 1024)
+    srt = sortnet.sort_records(rec, n_keys=2)
+    for row in srt[:, 0].numpy():
+        assert _k1_contiguous(row)
+    assert not _k1_contiguous(np.array([1, 2, 1]))  # the check can fail
 
 
 def test_chain_equals_reference(ref):
@@ -228,7 +286,12 @@ def test_scan_and_chain_kernels_equal_plain_cuda(n):
                    for a in _chain_inputs(n, seed=9))
     assert torch.equal(tsm.chain(lens, dists, 14),
                        tsm.chain_plain(lens, dists, 14))
-    assert _cuda.LAUNCHES["scan"] == before["scan"] + 1
+    # a batch of 3 x n records: the one-launch route up to
+    # s4_scan_direct_max() records, else the two-kernel route
+    spread = 3 * n > _cuda.lib().s4_scan_direct_max()
+    assert _cuda.LAUNCHES["scan"] == before["scan"] + spread
+    assert _cuda.LAUNCHES["scan_direct"] == before["scan_direct"] + (
+        not spread)
     assert _cuda.LAUNCHES["chain"] == before["chain"] + 1
 
 
@@ -281,3 +344,58 @@ def test_match_segments_on_cuda_equals_cpu():
     want = tsm.match_segments(*inputs)
     for g, w in zip(got, want):
         assert torch.equal(g.cpu(), w)
+
+
+# (family, B, n): the cases of scripts/torch_scan_times.py at the
+# dispatch shape, one row at small and odd lengths (the probe kernel's
+# tiles end at 448 or 1,984 slots, the unsort kernel's spans at 2,048
+# positions), odd rows on the two-kernel route, its longest row, and rows
+# past it
+SCAN_KERNEL_CASES = (
+    [(c, 8, 1 << 17) for c in SCAN_CASES]
+    + [("mixed", 1, n) for n in (1, 3, 63, 64, 65, 447, 449, 1000, 1024,
+                                 1984, 1985, 2047, 2049, 8193, 100_003)]
+    + [("one gram", 3, 4099), ("mixed", 3, 100_003), ("one gram", 2, 131_071),
+       ("position order", 5, 65_537), ("mixed", 1, 1 << 19),
+       ("mixed", 2, (1 << 19) + 7), ("one gram", 1, 600_001)])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family,B,n", SCAN_KERNEL_CASES, ids=str)
+def test_scan_kernel_cases_cuda(family, B, n):
+    dev = _cuda_or_skip()
+    rec = torch.from_numpy(scan_rows(np, family, B, n, seed=B * n)).to(dev)
+    lib = _cuda.lib()
+    spread = n <= lib.s4_scan_row_max() and B * n > lib.s4_scan_direct_max()
+    before = dict(_cuda.LAUNCHES)
+    got = tsm.neighbor_scan(rec)
+    torch.cuda.synchronize()
+    for g, w in zip(got, tsm.neighbor_scan_plain(rec)):
+        assert torch.equal(g, w)
+    assert _cuda.LAUNCHES["scan"] == before["scan"] + spread
+    assert _cuda.LAUNCHES["scan_direct"] == before["scan_direct"] + (
+        not spread)
+
+
+@pytest.mark.cuda
+def test_scan_kernel_real_dispatch_cuda():
+    """The records of chip_smoke's sort-engine dispatch, and the same with
+    every record invalid."""
+    import chip_smoke
+
+    dev = _cuda_or_skip()
+    disp = chip_smoke.sort_dispatch(torch, np, dev, chip_smoke.real_corpus())
+    invalid = disp.srec.clone()
+    invalid[:, 2] |= INVALID
+    for rec in (disp.srec, invalid):
+        for g, w in zip(tsm.neighbor_scan(rec), tsm.neighbor_scan_plain(rec)):
+            assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
+def test_scan_refuses_too_many_rows_cuda():
+    dev = _cuda_or_skip()
+    rows = _cuda.lib().s4_scan_max_rows() + 1
+    rec = torch.zeros(rows, 5, 4, dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="rows"):
+        tsm.neighbor_scan(rec)
