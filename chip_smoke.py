@@ -70,7 +70,22 @@ network and no arguments.  Phases:
      compressed block or batch round, with the decode rates beside
      native.decompress's; and the host side of one realcorpus device
      decode stage by stage (parse, padding and uploads, expansion, copy
-     back; host clock).
+     back; host clock);
+  3e. device-resident encode (match_chunks_raw -> the policy-iteration DP
+     of csrc/parse.cu -> the tensor-op emit): compress_device_resident of
+     the fixture at 1 MiB and 4 MiB blocks, with the launch counters set to
+     0 just before each, must decode back and equal the stream built with
+     the DP's plain version on the card; a block may take the host fallback
+     only where the plain DP also hits the round cap; the rounds and ok of
+     every block, the encode rate and d2h bytes per input byte beside the
+     chunk engine's parity rate of phase 3; then the DP kernel against its
+     plain version (choice, cost, converged, rounds: exact) on the claims
+     of every 1 MiB block and of the first 4 MiB block as the encode gave
+     them, and on its worst cases (a 65,535-long repeat, a distance-1 run
+     past MAX_SAME_LETTER, 1 MiB of random bytes, a 1 MiB block cut after
+     one round), each converged choice equal to native.estimate_costs, one
+     launch of the kernel a call (torch.profiler), timed on the 4 MiB
+     block; and the emit's device time on that block.
 
 Prints a {"kernels": [...]} JSON line (each kernel's launches on its main
 path, error, kernel / plain / library time and bound; the chain once for
@@ -131,11 +146,28 @@ KERNELS = [  # (counter, source, replaced TPU kernel, engine path)
     # XLA in the reference (its pointer-doubling while loop), not Pallas
     ("expand", "smallz4_tpu_torch/csrc/expand.cu",
      "smallz4_tpu/ops/decoder.py:28", "decode"),
+    # the device-resident encode (match_chunks_raw -> parse -> emit); at
+    # 4 MiB blocks its chunk groups have phase 2's shapes
+    ("sort_records", "smallz4_tpu_torch/csrc/sortnet.cu",
+     "smallz4_tpu/ops/sortnet.py:164", "resident"),
+    ("merge_sorted", "smallz4_tpu_torch/csrc/sortnet.cu",
+     "smallz4_tpu/ops/sortnet.py:276", "resident"),
+    ("probe", "smallz4_tpu_torch/csrc/probe.cu",
+     "smallz4_tpu/ops/chunkmatch.py:199", "resident"),
+    ("compact", "smallz4_tpu_torch/csrc/compact.cu",
+     "smallz4_tpu/ops/chunkmatch.py:396", "resident"),
+    ("chain", "smallz4_tpu_torch/csrc/sortmatch.cu",
+     "smallz4_tpu/ops/sortmatch.py:159", "resident"),
+    # XLA in the reference (its policy-iteration while loop), not Pallas
+    ("parse", "smallz4_tpu_torch/csrc/parse.cu",
+     "smallz4_tpu/ops/parse.py:153", "resident"),
 ]
 CHUNK_KERNELS = ("sort_records", "merge_sorted", "probe", "compact", "chain",
                  "pack")
 SORT_KERNELS = ("sort_records", "scan", "chain", "run_lengths")
 WALK_KERNELS = ("gram_hash", "walk", "run_lengths")
+RESIDENT_KERNELS = ("sort_records", "merge_sorted", "probe", "compact",
+                    "chain", "parse")
 # integer operations of one walk round of an active lane (activity test,
 # two clipped byte gathers, the distance-1 branch, the update, the hop) and
 # of one extension word (two clipped word gathers, xor, test, add, clamp)
@@ -198,9 +230,10 @@ def device_ms(torch, fn, reps: int, name: str = "",
     it, both ends on the host's clock (the card's timestamps, converted,
     stray by hundreds of microseconds from the host's).  A session can
     lose the records of its first call's kernels, so each session makes
-    one more warm-up call before its window.  A trace that lost the record
-    of a launch in the window is taken again, up to six times, until one
-    holds them all, else the fullest one counts."""
+    one more warm-up call before its window, and one call after it, so
+    that no kernel of the window is the session's last.  A trace that lost
+    the record of a launch in the window is taken again, up to six times,
+    until one holds them all, else the fullest one counts."""
     from torch.profiler import ProfilerActivity, profile, record_function
 
     fn()
@@ -215,6 +248,8 @@ def device_ms(torch, fn, reps: int, name: str = "",
                 for _ in range(reps):
                     fn()
                 torch.cuda.synchronize()
+            fn()  # the window's last kernel is not the session's last
+            torch.cuda.synchronize()
         events = prof.profiler.kineto_results.events()
         on_card = [e.device_type() == torch.autograd.DeviceType.CUDA
                    for e in events]
@@ -804,6 +839,7 @@ def encode_run(torch, _cuda, native, pipeline, name, data, expect, **kw):
     got = pipeline.compress(data, 9, device="cuda", stats=stats, **kw)
     wall = time.perf_counter() - t
     counts = dict(_cuda.LAUNCHES)
+    stats["wall_s"] = wall
     if got != want:
         raise AssertionError(f"{name}: stream != native.compress(data, 9)"
                              f" ({len(got)} vs {len(want)} bytes)")
@@ -1054,6 +1090,270 @@ def decode_run(torch, np, _cuda, native, api, real: bytes, made,
     return counts
 
 
+# integer operations of the DP's work on a block, as one backward scan does
+# it (parse_work): a position's literal candidate, each tier-1 length it
+# scans, each further tier it queries
+PARSE_OPS_LITERAL = 6
+PARSE_OPS_LENGTH = 3
+PARSE_OPS_TIER = 12
+
+
+def parse_work(torch, lens, dists, n: int) -> int:
+    """The DP's operations on these claims (PARSE_OPS_*): every position's
+    literal, every length 4..18 its clamped claim reaches, every tier >= 2
+    it reaches; the MAX_SAME_LETTER shortcut scans nothing."""
+    from smallz4_tpu_torch.ops import parse
+
+    L, run_sc, _ = parse._claims(lens, dists, n)
+    scanned = (L >= 4) & ~run_sc
+    t1 = torch.where(scanned, torch.clamp_max(L, 18) - 3, 0)
+    tiers = torch.where(scanned & (L > 18), (L - 19) // 255 + 1, 0)
+    return int(PARSE_OPS_LITERAL * n + PARSE_OPS_LENGTH * int(t1.sum())
+               + PARSE_OPS_TIER * int(tiers.sum()))
+
+
+# bytes a position of one policy-iteration round of csrc/parse.cu outside
+# its jump rounds (literal flags: the choice read twice; steps and jumps:
+# an 8-byte word and a literal-cost byte written; costs: the word read, the
+# cost written; the table: the word read again and an 8-byte word written;
+# the improvement: the staged cost, lens, dists, the literal cost, the
+# choice read and written), and of one jump round (a word read, a word
+# gathered, a word written)
+PARSE_ROUND_BYTES = 4 + 4 + 9 + 12 + 16 + 21
+PARSE_JUMP_BYTES = 24
+
+
+def jump_rounds(torch, choice, n: int) -> int:
+    """Synchronous pointer-jumping rounds until every jump of the policy
+    ``choice`` reaches the absorbing tail (positions >= n - 5): what one
+    policy evaluation of csrc/parse.cu takes at most."""
+    N = choice.shape[0]
+    idx = torch.arange(N, device=choice.device)
+    limit = n - 5
+    nxt = torch.where(idx >= limit, idx, torch.clamp_max(
+        idx + torch.clamp_min(choice.long(), 1), N - 1))
+    rounds = 0
+    while bool((nxt < limit).any()):
+        nxt = nxt[nxt]
+        rounds += 1
+    return rounds
+
+
+def native_claims(np, native, data: bytes):
+    """Level-9 claims of one block by the native search, the last 11
+    positions literals: (lens, dists) int32 numpy."""
+    n = len(data)
+    lens = np.zeros(n, np.int32)
+    dists = np.zeros(n, np.int32)
+    native.match_block_ex(np.frombuffer(data, np.uint8), base=0, bs=n,
+                          level=9, lookback=0, cut_pos=-1, lens=lens,
+                          dists=dists)
+    lens[n - 11:] = 1
+    dists[n - 11:] = 0
+    return lens, dists
+
+
+def resident_run(torch, _cuda, pipeline, parse, real: bytes, block: int,
+                 plain: bool = False):
+    """One compress_device_resident of ``real`` at ``block`` on the card,
+    the launch counters set to 0 just before it; with ``plain`` the DP runs
+    its plain version on the card.  Records each block's DP inputs
+    (lens, dists, n), rounds and converged flag and the step's ok.
+    Returns (stream, wall s, launch counts, report, blocks)."""
+    from smallz4_tpu_torch.utils.profiling import RunReport
+
+    blocks = []
+    dp_fn = parse.policy_iteration_plain if plain else parse.policy_iteration
+    orig_dp = parse.estimate_costs_device
+    orig_step = pipeline._device_resident_block_step
+
+    def dp(lens, dists, n, max_iters=48):
+        choice, cost, conv, rounds = dp_fn(lens, dists, n, max_iters)
+        blocks.append({"lens": lens, "dists": dists, "n": n,
+                       "rounds": rounds, "conv": conv})
+        return choice, cost, conv
+
+    def step(*args):
+        out = orig_step(*args)
+        blocks[-1].update(ok=out[3], args=args)
+        return out
+
+    rep = RunReport(operation="encode", engine="")
+    parse.estimate_costs_device = dp
+    pipeline._device_resident_block_step = step
+    try:
+        torch.cuda.synchronize()
+        _cuda.reset_counts()
+        t = time.perf_counter()
+        frame = pipeline.compress_device_resident(real, block_size=block,
+                                                  report=rep, device="cuda")
+        wall = time.perf_counter() - t
+        counts = dict(_cuda.LAUNCHES)
+    finally:
+        parse.estimate_costs_device = orig_dp
+        pipeline._device_resident_block_step = orig_step
+    for b in blocks:
+        b.update(rounds=int(b["rounds"]), conv=bool(b["conv"]),
+                 ok=bool(b["ok"]))
+    return frame, wall, counts, rep, blocks
+
+
+def resident_encode(torch, _cuda, native, pipeline, parse, real: bytes,
+                    block: int, chunk_rate: float):
+    """Phase 3e, end to end: the device-resident encode of ``real`` at
+    ``block``, then the same with the DP's plain version; the streams must
+    be equal and decode back, each block's fallback (ok False) must be one
+    where the plain DP also hit the cap, and the launches one of each match
+    kernel and of the parse a block (the sort once more for the empty
+    halo).  Returns (launch counts, blocks)."""
+    name = f"realcorpus at {block >> 20} MiB blocks"
+    frame, wall, counts, rep, blocks = resident_run(
+        torch, _cuda, pipeline, parse, real, block)
+    plain_frame, plain_wall, _, _, plain_blocks = resident_run(
+        torch, _cuda, pipeline, parse, real, block, plain=True)
+    if native.decompress(frame) != real:
+        raise AssertionError(f"{name}: device-resident stream does not "
+                             f"decode back")
+    if frame != plain_frame:
+        raise AssertionError(f"{name}: stream != the plain DP's stream")
+    for k, (b, pb) in enumerate(zip(blocks, plain_blocks)):
+        if not b["ok"] and pb["ok"]:
+            raise AssertionError(f"{name}: block {k} took the host fallback "
+                                 f"but the plain DP converged")
+    n_blocks = len(blocks)
+    expect = ({k: 0 for k in _cuda.LAUNCHES}
+              | {k: n_blocks for k in RESIDENT_KERNELS}
+              | {"sort_records": n_blocks + 1})
+    if counts != expect:
+        raise AssertionError(f"{name}: launches {counts} != {expect}")
+    d2h = rep.counters.get("n_d2h_bytes", 0)
+    log(f"[3e] device-resident {name}: {len(real)} B -> {len(frame)} B, "
+        f"decodes back, equal to the plain DP's stream; "
+        f"{len(real) / wall / 1e6:.3f} MB/s ({wall:.3f} s; plain DP "
+        f"{len(real) / plain_wall / 1e6:.3f} MB/s); d2h {d2h} B = "
+        f"{d2h / len(real):.4f} B an input byte; chunk engine parity "
+        f"{chunk_rate:.3f} MB/s (phase 3); ratio "
+        f"{len(frame) / len(real):.4f}; stages (host clock) "
+        + ", ".join(f"{k} {v:.3f} s" for k, v in rep.stages.items())
+        + f"; launches {counts}")
+    log(f"[3e]   rounds a block {[b['rounds'] for b in blocks]}, ok "
+        f"{[b['ok'] for b in blocks]} (plain DP: rounds "
+        f"{[b['rounds'] for b in plain_blocks]}); host fallback blocks "
+        f"{[k for k, b in enumerate(blocks) if not b['ok']]}")
+    return counts, blocks
+
+
+def parse_check(torch, np, native, parse, name: str, lens, dists, n: int,
+                max_iters: int = 48) -> dict:
+    """The DP kernel against its plain version on the card (choice, cost,
+    converged, rounds: exact), the converged choice against
+    native.estimate_costs, one launch of the kernel a call
+    (torch.profiler).  Returns the kernel's device time, launches a call,
+    rounds and error."""
+    got = parse.policy_iteration(lens, dists, n, max_iters)
+    want = parse.policy_iteration_plain(lens, dists, n, max_iters)
+    err = max_err(torch, got, want)
+    rounds, conv = int(got[3]), bool(got[2])
+    native_eq = None
+    if conv:
+        ref = lens[:n].cpu().numpy().copy()
+        native.estimate_costs(ref, dists[:n].cpu().numpy().copy())
+        native_eq = bool(np.array_equal(got[0][:n].cpu().numpy(), ref))
+    dev_ms, per_call = device_ms(torch, lambda: parse.policy_iteration(
+        lens, dists, n, max_iters), 2, name="parse", own=True)
+    log(f"[3e] parse {name}: n {n}, max_iters {max_iters}: max_abs_err {err}"
+        f" (tolerance 0), rounds {rounds}, converged {conv}, equal to "
+        f"native.estimate_costs {native_eq}; kernel {dev_ms:.4f} ms device, "
+        f"{per_call:g} launch(es) a call")
+    if err != 0 or native_eq is False or per_call != 1:
+        raise AssertionError(f"parse {name}: error {err}, native "
+                             f"{native_eq}, {per_call} launches a call")
+    return {"err": err, "device_ms": dev_ms, "rounds": rounds}
+
+
+def parse_cases(torch, np, native, parse, emit, dev, real: bytes,
+                mib_blocks, big_block) -> dict:
+    """Phase 3e, the kernel: parse_check on the DP inputs of every 1 MiB
+    block (``mib_blocks``) and of the first 4 MiB block (``big_block``) of
+    the encodes, and on the worst cases; check_kernels on the 4 MiB block
+    (its record for the kernels line); the emit's device time on that
+    block's parse.  Returns the record."""
+    err = 0
+    for k, b in enumerate(mib_blocks):
+        err = max(err, parse_check(torch, np, native, parse,
+                                   f"realcorpus 1 MiB block {k}", b["lens"],
+                                   b["dists"], b["n"])["err"])
+    rng = np.random.default_rng(12)
+    frag = rng.integers(0, 256, 700, dtype=np.uint8).tobytes()
+    worst = {
+        "repeat 65535": (frag * 100)[:700 + 65535] + b"end of block" * 4,
+        "run past MAX_SAME_LETTER": b"Q" * (65299 + 4000) + b"tail" * 40,
+        "random 1 MiB": rng.integers(0, 256, 1 << 20,
+                                     dtype=np.uint8).tobytes(),
+    }
+    for name, data in worst.items():
+        lens, dists = (torch.from_numpy(a).to(dev)
+                       for a in native_claims(np, native, data))
+        err = max(err, parse_check(torch, np, native, parse, name, lens,
+                                   dists, len(data))["err"])
+    b0 = mib_blocks[0]
+    err = max(err, parse_check(torch, np, native, parse,
+                               "realcorpus 1 MiB block 0, cut", b0["lens"],
+                               b0["dists"], b0["n"], 1)["err"])
+    lens, dists, n = big_block["lens"], big_block["dists"], big_block["n"]
+    work = parse_work(torch, lens, dists, n)
+    res = check_kernels(torch, {"parse": (
+        lambda: parse.policy_iteration(lens, dists, n),
+        lambda: parse.policy_iteration_plain(lens, dists, n),
+        (lens, dists), work)}, "3e",
+        f"the first 4 MiB block, {big_block['rounds']} rounds",
+        kernel_name="parse")["parse"]
+    res["max_abs_err"] = max(err, res["max_abs_err"])
+    evals = big_block["rounds"] + 1
+    choice = parse.estimate_costs_device(lens, dists, n)[0]
+    jumps = jump_rounds(torch, choice, n)
+    design = evals * (PARSE_ROUND_BYTES + PARSE_JUMP_BYTES * jumps) * n
+    log(f"[3e] parse: the bound is {res['bound_ms'] / res['device_ms']:.2%} "
+        f"of the device time ({work} counted operations); "
+        f"{res['device_ms'] / evals:.4f} ms a policy evaluation "
+        f"({big_block['rounds']} improvements + 1); design bytes: {evals} "
+        f"rounds x ({PARSE_ROUND_BYTES} + {PARSE_JUMP_BYTES} x {jumps} jump "
+        f"rounds of the final policy) B x {n} positions = "
+        f"{design / 1e9:.3f} GB, {design / res['device_ms'] / 1e6:.1f} GB/s "
+        f"achieved by device time")
+    # the emit (tensor ops, no hand kernel): its device time on this block
+    blk = torch.from_numpy(np.frombuffer(real[:n], np.uint8).copy()).to(dev)
+    d = torch.where(choice > 1, dists, 0)
+    out, n_out = emit.emit_block_device(blk, choice, d)
+    want = native.emit_block(real[:n], choice.cpu().numpy(), d.cpu().numpy())
+    if out[:int(n_out)].cpu().numpy().tobytes() != want:
+        raise AssertionError("emit_block_device != native.emit_block")
+    e_ms = cuda_ms(torch, lambda: emit.emit_block_device(blk, choice, d), 3)
+    e_dev, e_launches = device_ms(
+        torch, lambda: emit.emit_block_device(blk, choice, d), 2)
+    log(f"[3e] emit_block_device, the first 4 MiB block: {int(n_out)} B "
+        f"equal to native.emit_block; {e_ms:.4f} ms events, {e_dev:.4f} ms "
+        f"device in {e_launches:g} launches a call (tensor ops); bound "
+        f"{bound(nbytes(blk, choice, d) + int(n_out), 0)[0] * 1e3:.2f} us "
+        f"(bytes)")
+    # the block step by stage (CUDA events): the raw match, the DP, the emit
+    from smallz4_tpu_torch.ops import chunkmatch as cm
+    from smallz4_tpu_torch.ops import pipeline
+
+    args = big_block["args"]
+    halo, bufs, cand, vhi, lim, cg, cp, _, n_chunks, _ = args
+    m_ms = cuda_ms(torch, lambda: cm.match_chunks_raw(
+        halo, bufs, cand, vhi, lim, cg, cp, n_chunks=n_chunks,
+        chunk=cm.CHUNK), 3)
+    s_ms = cuda_ms(torch, lambda: pipeline._device_resident_block_step(
+        *args), 3)
+    log(f"[3e] device-resident block step, the first 4 MiB block (CUDA "
+        f"events): {s_ms:.4f} ms = match_chunks_raw {m_ms:.4f} + the DP "
+        f"{res['ms']:.4f} + the emit {e_ms:.4f} + the rest "
+        f"{s_ms - m_ms - res['ms'] - e_ms:.4f}")
+    return res
+
+
 def main() -> int:
     import torch
 
@@ -1075,6 +1375,7 @@ def main() -> int:
     from smallz4_tpu_torch import native
     from smallz4_tpu_torch.ops import _cuda, sortnet
     from smallz4_tpu_torch.ops import chunkmatch as cm
+    from smallz4_tpu_torch.ops import emit, parse
     from smallz4_tpu_torch.ops import match_finder as mf
     from smallz4_tpu_torch.ops import pallas_kernels as pk
     from smallz4_tpu_torch.ops import pipeline
@@ -1309,10 +1610,12 @@ def main() -> int:
             ("realcorpus_legacy", real, True)):
         block = fmt.MAX_BLOCK_SIZE_LEGACY if legacy else fmt.MAX_BLOCK_SIZE
         log(f"[3] chunk engine, {name}")
-        counts, _, got = encode_run(torch, _cuda, native, pipeline, name,
-                                    data, chunk_expected(data, block),
-                                    legacy=legacy)
+        counts, st, got = encode_run(torch, _cuda, native, pipeline, name,
+                                     data, chunk_expected(data, block),
+                                     legacy=legacy)
         made.append((name, data, got))
+        if name == "realcorpus":
+            chunk_rate = len(data) / st["wall_s"] / 1e6
         launches = launches or counts
     public = smallz4_tpu_torch.compress(real, 9)  # the default: the card
     if public != native.compress(real, 9):
@@ -1383,11 +1686,25 @@ def main() -> int:
         f"{sum(v for k, v in stages.items() if k != 'decompress'):.3f}; "
         f"decompress(engine=\"device\") {stages['decompress']:.3f}")
 
+    # -- phase 3e: the device-resident encode ------------------------------
+    _, mib_blocks = resident_encode(torch, _cuda, native, pipeline, parse,
+                                    real, 1 << 20, chunk_rate)
+    resident_launches, big_blocks = resident_encode(
+        torch, _cuda, native, pipeline, parse, real, fmt.MAX_BLOCK_SIZE,
+        chunk_rate)
+    results["parse", "resident"] = parse_cases(
+        torch, np, native, parse, emit, dev, real, mib_blocks, big_blocks[0])
+    for name in RESIDENT_KERNELS[:-1]:  # phase 2's measurements
+        results[name, "resident"] = {k: v for k, v
+                                     in results[name, "chunk"].items()
+                                     if k != "sort_engine"}
+
     results["sort_records", "chunk"]["sort_engine"]["launches"] = \
         sort_launches["sort_records"]
     results["scan_direct", "long rows"] = scan_direct
     path_launches = {"chunk": launches, "sort": sort_launches,
                      "walk": walk_launches, "decode": decode_launches,
+                     "resident": resident_launches,
                      "long rows": {"scan_direct": scan_direct["launches"]}}
     kernels = [{"name": name, "route": "cuda", "source": src,
                 "replaces": rep, "path": path,

@@ -519,18 +519,14 @@ def pack_results(lens: torch.Tensor, dists: torch.Tensor, conv: torch.Tensor,
     return bits, packed, count, cbits, kbits
 
 
-def match_chunks(halo: torch.Tensor, bufs: torch.Tensor, cand_hi, valid_hi,
-                 match_limit, cut_gram, cut_pos, n_chunks: int = GROUP,
-                 head_cap: int = HEAD_CAP, chunk: int = CHUNK,
-                 lean: bool = False):
-    """The device encode of ``n_chunks`` consecutive chunks (``bufs`` uint8
-    [n_chunks, chunk + LOOK]) after the chunk whose sorted planes are
-    ``halo`` ([6, chunk]).  Equals the reference's stepwise scan.  Scalar
-    ``cut_gram``/``cut_pos`` apply to chunk 0 only; [n_chunks] tensors give
-    every chunk its own cut.  Returns (next halo [6, chunk], (bits,
-    packed[:, :head_cap], n_heads, conv_bits, lk_bits)) stacked over
-    chunks."""
-    del lean
+def match_chunks_raw(halo: torch.Tensor, bufs: torch.Tensor, cand_hi,
+                     valid_hi, match_limit, cut_gram, cut_pos,
+                     n_chunks: int = GROUP, chunk: int = CHUNK):
+    """``match_chunks`` without the head/delta pack: (next halo [6, chunk],
+    (lens, dists int32, conv, lk bool)) stacked over chunks, each
+    [n_chunks, chunk], kept on the device (lens saturate at 65535, dists
+    are at most 65535: the reference's uint16 values).  The front half of
+    the device-resident encode (match -> ops.parse -> ops.emit)."""
     if bufs.shape[0] != n_chunks:
         raise ValueError(f"bufs holds {bufs.shape[0]} chunks, not {n_chunks}")
     dev = bufs.device
@@ -543,12 +539,28 @@ def match_chunks(halo: torch.Tensor, bufs: torch.Tensor, cand_hi, valid_hi,
     cur = sort_chunk(bufs, 0, cand_hi, chunk=chunk)
     # the scan carry: chunk i's halo is chunk i-1's sorted records
     halos = torch.cat([halo.unsqueeze(0), cur[:-1]])
-    lens, dists, conv, lk = _probe_rows(
-        _merged_input(halos, cur, chunk), cut_gram, cut_pos, 0, valid_hi,
-        match_limit, chunk)
-    bits, packed, count, cbits, kbits = pack_results(lens, dists, conv, lk,
-                                                     chunk)
-    return cur[-1], (bits, packed[:, :head_cap], count, cbits, kbits)
+    claims = _probe_rows(_merged_input(halos, cur, chunk), cut_gram, cut_pos,
+                         0, valid_hi, match_limit, chunk)
+    return cur[-1], claims
+
+
+def match_chunks(halo: torch.Tensor, bufs: torch.Tensor, cand_hi, valid_hi,
+                 match_limit, cut_gram, cut_pos, n_chunks: int = GROUP,
+                 head_cap: int = HEAD_CAP, chunk: int = CHUNK,
+                 lean: bool = False):
+    """The device encode of ``n_chunks`` consecutive chunks (``bufs`` uint8
+    [n_chunks, chunk + LOOK]) after the chunk whose sorted planes are
+    ``halo`` ([6, chunk]).  Equals the reference's stepwise scan.  Scalar
+    ``cut_gram``/``cut_pos`` apply to chunk 0 only; [n_chunks] tensors give
+    every chunk its own cut.  Returns (next halo [6, chunk], (bits,
+    packed[:, :head_cap], n_heads, conv_bits, lk_bits)) stacked over
+    chunks."""
+    del lean
+    halo, claims = match_chunks_raw(halo, bufs, cand_hi, valid_hi,
+                                    match_limit, cut_gram, cut_pos,
+                                    n_chunks=n_chunks, chunk=chunk)
+    bits, packed, count, cbits, kbits = pack_results(*claims, chunk)
+    return halo, (bits, packed[:, :head_cap], count, cbits, kbits)
 
 
 def unpack_bits_rows(bits, chunk):

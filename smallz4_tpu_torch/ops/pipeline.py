@@ -17,6 +17,11 @@ stream: inputs go up as host-to-device copies, results come back as
 non-blocking copies into pinned host buffers, and one CUDA event per group
 or dispatch marks them ready.  Pool threads touch only numpy arrays and the
 native runtime.
+
+``compress_device_resident`` (the reference's device-resident encode) keeps
+a block's claims on the device: the chunk search's raw claims feed the
+policy-iteration DP (``ops.parse``) and the sequence emit (``ops.emit``),
+and only the compressed bytes come back.
 """
 from __future__ import annotations
 
@@ -32,7 +37,9 @@ from .. import format as fmt
 from .. import native
 from ..parallel import host as host_par
 from . import chunkmatch as cm
+from . import emit as dev_emit
 from . import match_finder as mf
+from . import parse as dev_parse
 from . import sortmatch as sm
 
 HALO = fmt.MAX_DISTANCE  # 64 KB - 1: the dependent-block history window
@@ -646,6 +653,141 @@ class _Done:
 
     def result(self):
         return self._value
+
+
+def _device_resident_block_step(halo, bufs, cand, vhi, lim, cut_gram, cut_pos,
+                                blk, n_chunks: int, bs: int):
+    """One block of the device-resident encode, all on the device: the
+    chunk search's raw claims (``cm.match_chunks_raw``), the last 11
+    positions made literals, the policy-iteration DP (``ops.parse``), the
+    sequence emit (``ops.emit``) of the chosen matches.  Returns (next
+    halo, payload uint8 [bs + bs//255 + 16], n_out, ok); ok False: the DP
+    hit its round cap."""
+    halo, (lens, dists, _conv, _lk) = cm.match_chunks_raw(
+        halo, bufs, cand, vhi, lim, cut_gram, cut_pos, n_chunks=n_chunks,
+        chunk=cm.CHUNK)
+    lens = lens.reshape(-1)[:bs]
+    dists = dists.reshape(-1)[:bs]
+    pos = torch.arange(bs, device=lens.device)
+    tail = pos >= bs - (fmt.BLOCK_END_NO_MATCH - 1)
+    lens = torch.where(tail, 1, lens)
+    dists = torch.where(tail, 0, dists)
+    choice, _cost, ok = dev_parse.estimate_costs_device(lens, dists, bs)
+    payload, n_out = dev_emit.emit_block_device(
+        blk, choice, torch.where(choice > 1, dists, 0))
+    return halo, payload, n_out, ok
+
+
+def compress_device_resident(data, block_size: int | None = None,
+                             report=None, device="cuda") -> bytes:
+    """Device-resident level-9-class encode on ``device`` (a CUDA device
+    runs the hand-written kernels, the CPU their plain versions; a CUDA
+    device without CUDA raises): per block, match (the chunk engine's raw
+    claims), optimal parse (``ops.parse``) and sequence emit (``ops.emit``)
+    on the device, so only the compressed bytes come back to the host.
+
+    The claims saturate at 65535 and skip the host refine, so the stream is
+    valid and -9-class but not bit-identical to ``smallz4 -9``.  Modern
+    frames, no dictionary; ``block_size`` (default min(4 MiB, 16 chunks))
+    must be a multiple of ``cm.CHUNK``.  A block whose DP hits its round
+    cap is redone on the host (exact search, native DP and emit).
+    ``report`` (a ``utils.profiling.RunReport``) receives the wall time,
+    the stages (device_total, fetch_assemble) and the counters n_h2d_bytes
+    and n_d2h_bytes."""
+    dev = resolve_device(device)
+    t_run = time.perf_counter()
+    data = bytes(data)
+    CH = cm.CHUNK
+    if block_size is None:
+        block_size = min(fmt.MAX_BLOCK_SIZE, 16 * CH)
+    if block_size % CH != 0:
+        raise ValueError(f"device-resident path needs block_size % {CH} == 0")
+    n = len(data)
+    arr = np.frombuffer(data, np.uint8)
+    out = bytearray(fmt.build_frame_header(False))
+    stages: dict = {}
+    blocks = _blocks(n, block_size)
+    to_dev, _ = _device_pair(dev.type == "cuda", dev)
+
+    def add(key, v):
+        stages[key] = stages.get(key, 0) + v
+
+    halo = cm.empty_halo(chunk=CH, device=dev)  # carried block to block
+    for start, end in blocks:
+        bs = end - start
+        n_chunks = -(-bs // CH)
+        t0 = time.perf_counter()
+        bufs = np.zeros((n_chunks, CH + cm.LOOK), np.uint8)
+        cand = np.zeros(n_chunks, np.int32)
+        lim = np.zeros(n_chunks, np.int32)
+        for j in range(n_chunks):
+            cs = start + j * CH
+            take = max(0, min(CH + cm.LOOK, n - cs))
+            bufs[j, :take] = arr[cs: cs + take]
+            cand[j] = max(0, min(CH, bs - j * CH))
+            lim[j] = bs - j * CH - fmt.BLOCK_END_LITERALS
+        block_cut = _block_cut(start, False)
+        if block_cut:
+            cut_gram = cm.pack_cut_gram(
+                data[start - fmt.BLOCK_END_NO_MATCH:
+                     start - fmt.BLOCK_END_NO_MATCH + 4])
+            cut_pos = CH - fmt.BLOCK_END_NO_MATCH
+        else:
+            cut_gram, cut_pos = 0, -1
+        add("n_h2d_bytes", bufs.nbytes + bs)
+        cand_d = to_dev(cand)  # candidate and claim validity end together
+        halo, payload, n_out, ok = _device_resident_block_step(
+            halo, to_dev(bufs), cand_d, cand_d, to_dev(lim), cut_gram,
+            cut_pos, to_dev(arr[start:end].copy()), n_chunks, bs)
+        add("device_total", time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        m, good = torch.stack([n_out.to(torch.int32),
+                               ok.to(torch.int32)]).tolist()
+        if not good:
+            # the DP's round cap: the block is redone on the host (exact
+            # search, native DP and emit); the stream stays valid, only
+            # this block's bytes differ from the device path's
+            lo = max(start - HALO, 0)
+            ctx = arr[lo:end]
+            base = start - lo
+            lens = np.ones(bs, np.int32)
+            dists = np.zeros(bs, np.int32)
+            native.match_block_ex(
+                ctx, base=base, bs=bs, level=9, lookback=base,
+                cut_pos=base - fmt.BLOCK_END_NO_MATCH if block_cut else -1,
+                lens=lens, dists=dists)
+            native.estimate_costs(lens, dists)
+            pay = native.emit_block(data[start:end], lens, dists)
+            if len(pay) < bs:
+                out += fmt.build_block_header(len(pay), False, False)
+                out += pay
+            else:
+                out += fmt.build_block_header(bs, True, False)
+                out += data[start:end]
+        elif m < bs:
+            pay = payload[:m].cpu().numpy().tobytes()
+            add("n_d2h_bytes", m + 8)
+            out += fmt.build_block_header(m, False, False)
+            out += pay
+        else:  # stored block
+            add("n_d2h_bytes", 8)
+            out += fmt.build_block_header(bs, True, False)
+            out += data[start:end]
+        add("fetch_assemble", time.perf_counter() - t0)
+    out += fmt.build_end_mark(False)
+    if report is not None:
+        report.operation = "encode"
+        report.engine = "device-resident"
+        report.bytes_in = n
+        report.bytes_out = len(out)
+        report.blocks = len(blocks)
+        report.wall_s = time.perf_counter() - t_run
+        for k, v in stages.items():
+            if k.startswith("n_"):
+                report.counters[k] = report.counters.get(k, 0) + v
+            else:
+                report.stages[k] = report.stages.get(k, 0.0) + v
+    return bytes(out)
 
 
 def decompress(data, dictionary=None, device="cuda") -> bytes:

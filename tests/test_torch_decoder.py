@@ -438,8 +438,8 @@ def test_expand_kernel_fixed_launches_cuda():
             "expand_kernel")
         calls = _cuda.LAUNCHES["expand"] - before
         assert per_call == 1
-        # one count a call: 1, then 1 + 5 a trace
-        assert calls in range(7, 38, 6)
+        # one count a call: 1, then 1 + 5 + 1 a trace
+        assert calls in range(8, 44, 7)
 
 
 @pytest.mark.cuda

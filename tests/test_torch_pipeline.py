@@ -342,6 +342,9 @@ def test_port_imports_no_jax():
     files = sorted((ROOT / "smallz4_tpu_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
     assert len(files) >= 13
+    names = {f.relative_to(ROOT).as_posix() for f in files}
+    assert {"smallz4_tpu_torch/ops/parse.py", "smallz4_tpu_torch/ops/emit.py",
+            "smallz4_tpu_torch/utils/profiling.py"} <= names
     for f in files:
         for name in _imports(f):
             root = name.split(".")[0]
