@@ -81,11 +81,15 @@ network and no arguments.  Phases:
      chunk engine's parity rate of phase 3; then the DP kernel against its
      plain version (choice, cost, converged, rounds: exact) on the claims
      of every 1 MiB block and of the first 4 MiB block as the encode gave
-     them, and on its worst cases (a 65,535-long repeat, a distance-1 run
-     past MAX_SAME_LETTER, 1 MiB of random bytes, a 1 MiB block cut after
-     one round), each converged choice equal to native.estimate_costs, one
-     launch of the kernel a call (torch.profiler), timed on the 4 MiB
-     block; and the emit's device time on that block.
+     them, and on its worst cases (parse_worst: a 65,535-long repeat, a
+     distance-1 run past MAX_SAME_LETTER, 1 MiB of random bytes, claims
+     where every position is an entry, claims landing on tile edges and
+     on limit, N not a multiple of the tile, seeded claims across many
+     tiles, a 1 MiB block cut after one round and the 4 MiB block after
+     one and two), each converged choice equal to native.estimate_costs,
+     one launch of the kernel a call (torch.profiler), timed on the 4 MiB
+     block with its entries a tile and the bytes its design moves; and
+     the emit's device time on that block.
 
 Prints a {"kernels": [...]} JSON line (each kernel's launches on its main
 path, error, kernel / plain / library time and bound; the chain once for
@@ -1112,31 +1116,108 @@ def parse_work(torch, lens, dists, n: int) -> int:
                + PARSE_OPS_TIER * int(tiers.sum()))
 
 
-# bytes a position of one policy-iteration round of csrc/parse.cu outside
-# its jump rounds (literal flags: the choice read twice; steps and jumps:
-# an 8-byte word and a literal-cost byte written; costs: the word read, the
-# cost written; the table: the word read again and an 8-byte word written;
-# the improvement: the staged cost, lens, dists, the literal cost, the
-# choice read and written), and of one jump round (a word read, a word
-# gathered, a word written)
-PARSE_ROUND_BYTES = 4 + 4 + 9 + 12 + 16 + 21
-PARSE_JUMP_BYTES = 24
+# bytes of one policy-iteration round of csrc/parse.cu: a position's
+# outside the global rounds (steps and first jumps: the choice read, an
+# 8-byte word and a literal-cost byte written; costs: the word read, its
+# exit's word gathered, the cost written; the table: an 8-byte word
+# written; the improvement: the staged cost, lens, dists, the literal cost,
+# the choice read and written), an entry's (its mark, its list slot
+# written and read, its word read), and an entry's share of one global
+# round (its exit's word gathered, its word written)
+PARSE_ROUND_BYTES = 13 + 20 + 8 + 21
+PARSE_ENTRY_BYTES = 4 + 8 + 8
+PARSE_GLOBAL_BYTES = 16
+PARSE_TILE = 2048  # positions a tile of csrc/parse.cu (THREADS x PER)
 
 
-def jump_rounds(torch, choice, n: int) -> int:
-    """Synchronous pointer-jumping rounds until every jump of the policy
-    ``choice`` reaches the absorbing tail (positions >= n - 5): what one
-    policy evaluation of csrc/parse.cu takes at most."""
+def parse_entries(torch, choice, n: int) -> tuple[int, int]:
+    """(entries, global rounds) of csrc/parse.cu's evaluation of the policy
+    ``choice``: the positions below limit = n - 5 where a first jump from
+    an earlier tile lands, and the synchronous pointer-jumping rounds over
+    them until every entry's exit is in the absorbing tail, after each
+    tile resolved its own jumps."""
     N = choice.shape[0]
     idx = torch.arange(N, device=choice.device)
     limit = n - 5
-    nxt = torch.where(idx >= limit, idx, torch.clamp_max(
+    first = torch.where(idx >= limit, idx, torch.clamp_max(
         idx + torch.clamp_min(choice.long(), 1), N - 1))
+    tend = (idx // PARSE_TILE + 1) * PARSE_TILE
+    ex = first.clone()
+    while True:  # inside the tiles
+        inside = (ex < tend) & (ex < limit)
+        if not bool(inside.any()):
+            break
+        ex = torch.where(inside, ex[ex], ex)
+    entries = torch.unique(first[(first >= tend) & (first < limit)])
     rounds = 0
-    while bool((nxt < limit).any()):
-        nxt = nxt[nxt]
+    while bool((ex[entries] < limit).any()):
+        ex[entries] = ex[ex[entries]]
         rounds += 1
-    return rounds
+    return int(entries.numel()), rounds
+
+
+# the DP's synthetic worst cases (parse_claims) and their N in phase 3e
+PARSE_CASES = {"periodic": 4 << 20, "tile edges": 4 << 20,
+               "limit landing": 1 << 20, "odd N": (1 << 20) + 777,
+               "synthetic": 4 << 20}
+
+
+def parse_claims(np, case: str, N: int, seed: int):
+    """Claims of the DP's synthetic worst cases for the two-level
+    evaluation of csrc/parse.cu: (lens, dists int32 [N], n), numpy, every
+    claim in the DP's legal range (4 <= length <= n - 5 - i, else 1),
+    distances 2..65,535.  "periodic": the claims of a periodic input of
+    period 700 saturated at 65,535, the longest claim of the device
+    search: literals for the first period, then min(65,535, limit - i) at
+    distance 700, so every first jump is distinct and leaves its tile (the
+    unsaturated claims would all land on limit): every position is an
+    entry; "tile edges": literals, and at every tile edge e
+    = k * PARSE_TILE claims whose jumps land on e - 1, e and e + 1, of
+    lengths 4, 18, 19, 300, PARSE_TILE + 3 and 3 * PARSE_TILE + 1 (inside
+    the tile, across one edge, across several); "limit landing": n = N -
+    1,000 (the rest padding), literals, claims of lengths 4 to 2 *
+    PARSE_TILE + 7 whose jumps land exactly on limit = n - 5, and a chain
+    of 40 matches whose last lands there; "odd N" (N need not be a
+    multiple of the tile): n = N - 300, claims as "synthetic";
+    "synthetic": seeded claims, 40% literals, 30% lengths 4..18, 20%
+    19..PARSE_TILE (across at most one tile edge), 10% PARSE_TILE..65,535
+    (across many)."""
+    rng = np.random.default_rng(seed)
+    n = N - {"limit landing": 1000, "odd N": 300}.get(case, 0)
+    limit = n - 5
+    lens = np.ones(N, np.int64)
+    idx = np.arange(N)
+    if case == "periodic":
+        lens = np.where(idx >= 700, 65535, 1)
+    elif case in ("synthetic", "odd N"):
+        kind = rng.random(N)
+        lens = np.select(
+            [kind < 0.4, kind < 0.7, kind < 0.9],
+            [1, rng.integers(4, 19, N), rng.integers(19, PARSE_TILE + 1, N)],
+            rng.integers(PARSE_TILE, 65536, N))
+    elif case == "tile edges":
+        for e in range(PARSE_TILE, N, PARSE_TILE):
+            for d in (-1, 0, 1):
+                for length in (4, 18, 19, 300, PARSE_TILE + 3,
+                               3 * PARSE_TILE + 1):
+                    if e + d - length >= 0:
+                        lens[e + d - length] = length
+    elif case == "limit landing":
+        for length in (4, 5, 18, 19, 255, 300, PARSE_TILE,
+                       2 * PARSE_TILE + 7):
+            lens[limit - length] = length
+        p = limit
+        for _ in range(40):
+            length = int(rng.integers(4, 600))
+            p -= length
+            lens[p] = length
+    else:
+        raise ValueError(f"unknown case {case!r}")
+    lens = np.minimum(lens, np.maximum(limit - idx, 0))
+    lens = np.where(lens >= 4, lens, 1)
+    dists = np.where(lens > 1, 700 if case == "periodic"
+                     else rng.integers(2, 65536, N), 0)
+    return lens.astype(np.int32), dists.astype(np.int32), n
 
 
 def native_claims(np, native, data: bytes):
@@ -1248,8 +1329,9 @@ def parse_check(torch, np, native, parse, name: str, lens, dists, n: int,
     """The DP kernel against its plain version on the card (choice, cost,
     converged, rounds: exact), the converged choice against
     native.estimate_costs, one launch of the kernel a call
-    (torch.profiler).  Returns the kernel's device time, launches a call,
-    rounds and error."""
+    (torch.profiler; a trace that lost the kernel's records in all of
+    device_ms's retakes is taken anew, up to three times).  Returns the
+    kernel's device time, launches a call, rounds and error."""
     got = parse.policy_iteration(lens, dists, n, max_iters)
     want = parse.policy_iteration_plain(lens, dists, n, max_iters)
     err = max_err(torch, got, want)
@@ -1259,8 +1341,11 @@ def parse_check(torch, np, native, parse, name: str, lens, dists, n: int,
         ref = lens[:n].cpu().numpy().copy()
         native.estimate_costs(ref, dists[:n].cpu().numpy().copy())
         native_eq = bool(np.array_equal(got[0][:n].cpu().numpy(), ref))
-    dev_ms, per_call = device_ms(torch, lambda: parse.policy_iteration(
-        lens, dists, n, max_iters), 2, name="parse", own=True)
+    for _ in range(3):  # a session can lose kernel records (device_ms)
+        dev_ms, per_call = device_ms(torch, lambda: parse.policy_iteration(
+            lens, dists, n, max_iters), 2, name="parse", own=True)
+        if per_call == 1:
+            break
     log(f"[3e] parse {name}: n {n}, max_iters {max_iters}: max_abs_err {err}"
         f" (tolerance 0), rounds {rounds}, converged {conv}, equal to "
         f"native.estimate_costs {native_eq}; kernel {dev_ms:.4f} ms device, "
@@ -1271,35 +1356,58 @@ def parse_check(torch, np, native, parse, name: str, lens, dists, n: int,
     return {"err": err, "device_ms": dev_ms, "rounds": rounds}
 
 
+def parse_worst(torch, np, native, dev, mib_block0, big_block) -> dict:
+    """The DP's worst cases of phase 3e: name -> (lens, dists int32 on
+    ``dev``, n, max_iters).  By the native search (native_claims): a
+    65,535-long repeat of a 700-byte fragment, a distance-1 run past
+    MAX_SAME_LETTER, 1 MiB of random bytes; parse_claims' cases (periodic,
+    tile edges and the synthetic claims at 4 MiB, limit landing at 1 MiB,
+    odd N at 2^20 + 777); the first 1 MiB
+    block (``mib_block0``) cut after one improvement and the first 4 MiB
+    block (``big_block``) after one and after two."""
+    rng = np.random.default_rng(12)
+    frag = rng.integers(0, 256, 700, dtype=np.uint8).tobytes()
+    worst = {}
+    for name, data in {
+        "repeat 65535": (frag * 100)[:700 + 65535] + b"end of block" * 4,
+        "run past MAX_SAME_LETTER": b"Q" * (65299 + 4000) + b"tail" * 40,
+        "random 1 MiB": rng.integers(0, 256, 1 << 20,
+                                     dtype=np.uint8).tobytes(),
+    }.items():
+        lens, dists = (torch.from_numpy(a).to(dev)
+                       for a in native_claims(np, native, data))
+        worst[name] = (lens, dists, len(data), 48)
+    for case, N in PARSE_CASES.items():
+        lens, dists, n = parse_claims(np, case, N, seed=13)
+        worst[case] = (torch.from_numpy(lens).to(dev),
+                       torch.from_numpy(dists).to(dev), n, 48)
+    worst["realcorpus 1 MiB block 0, cut"] = (
+        mib_block0["lens"], mib_block0["dists"], mib_block0["n"], 1)
+    for cut in (1, 2):
+        worst[f"realcorpus 4 MiB block 0, cut at {cut}"] = (
+            big_block["lens"], big_block["dists"], big_block["n"], cut)
+    return worst
+
+
 def parse_cases(torch, np, native, parse, emit, dev, real: bytes,
                 mib_blocks, big_block) -> dict:
     """Phase 3e, the kernel: parse_check on the DP inputs of every 1 MiB
     block (``mib_blocks``) and of the first 4 MiB block (``big_block``) of
-    the encodes, and on the worst cases; check_kernels on the 4 MiB block
-    (its record for the kernels line); the emit's device time on that
-    block's parse.  Returns the record."""
+    the encodes, and on the worst cases of parse_worst; check_kernels on
+    the 4 MiB block (its record for the kernels line); the design's bytes
+    and entries; the emit's device time on that block's parse.  Returns
+    the record."""
+    from smallz4_tpu_torch.ops import pipeline
+
     err = 0
     for k, b in enumerate(mib_blocks):
         err = max(err, parse_check(torch, np, native, parse,
                                    f"realcorpus 1 MiB block {k}", b["lens"],
                                    b["dists"], b["n"])["err"])
-    rng = np.random.default_rng(12)
-    frag = rng.integers(0, 256, 700, dtype=np.uint8).tobytes()
-    worst = {
-        "repeat 65535": (frag * 100)[:700 + 65535] + b"end of block" * 4,
-        "run past MAX_SAME_LETTER": b"Q" * (65299 + 4000) + b"tail" * 40,
-        "random 1 MiB": rng.integers(0, 256, 1 << 20,
-                                     dtype=np.uint8).tobytes(),
-    }
-    for name, data in worst.items():
-        lens, dists = (torch.from_numpy(a).to(dev)
-                       for a in native_claims(np, native, data))
+    for name, (lens, dists, n, max_iters) in parse_worst(
+            torch, np, native, dev, mib_blocks[0], big_block).items():
         err = max(err, parse_check(torch, np, native, parse, name, lens,
-                                   dists, len(data))["err"])
-    b0 = mib_blocks[0]
-    err = max(err, parse_check(torch, np, native, parse,
-                               "realcorpus 1 MiB block 0, cut", b0["lens"],
-                               b0["dists"], b0["n"], 1)["err"])
+                                   dists, n, max_iters)["err"])
     lens, dists, n = big_block["lens"], big_block["dists"], big_block["n"]
     work = parse_work(torch, lens, dists, n)
     res = check_kernels(torch, {"parse": (
@@ -1311,16 +1419,20 @@ def parse_cases(torch, np, native, parse, emit, dev, real: bytes,
     res["max_abs_err"] = max(err, res["max_abs_err"])
     evals = big_block["rounds"] + 1
     choice = parse.estimate_costs_device(lens, dists, n)[0]
-    jumps = jump_rounds(torch, choice, n)
-    design = evals * (PARSE_ROUND_BYTES + PARSE_JUMP_BYTES * jumps) * n
+    entries, rounds = parse_entries(torch, choice, n)
+    tiles = -(-lens.shape[0] // PARSE_TILE)
+    design = evals * (PARSE_ROUND_BYTES * n + entries * (
+        PARSE_ENTRY_BYTES + PARSE_GLOBAL_BYTES * rounds))
     log(f"[3e] parse: the bound is {res['bound_ms'] / res['device_ms']:.2%} "
         f"of the device time ({work} counted operations); "
         f"{res['device_ms'] / evals:.4f} ms a policy evaluation "
-        f"({big_block['rounds']} improvements + 1); design bytes: {evals} "
-        f"rounds x ({PARSE_ROUND_BYTES} + {PARSE_JUMP_BYTES} x {jumps} jump "
-        f"rounds of the final policy) B x {n} positions = "
-        f"{design / 1e9:.3f} GB, {design / res['device_ms'] / 1e6:.1f} GB/s "
-        f"achieved by device time")
+        f"({big_block['rounds']} improvements + 1); the final policy has "
+        f"{entries} entries ({entries / tiles:.2f} a tile) and {rounds} "
+        f"global rounds; design bytes: {evals} rounds x ({PARSE_ROUND_BYTES}"
+        f" B x {n} positions + {entries} entries x ({PARSE_ENTRY_BYTES} + "
+        f"{PARSE_GLOBAL_BYTES} x {rounds}) B) = {design / 1e9:.4f} GB, "
+        f"{design / res['device_ms'] / 1e6:.1f} GB/s achieved by device "
+        f"time")
     # the emit (tensor ops, no hand kernel): its device time on this block
     blk = torch.from_numpy(np.frombuffer(real[:n], np.uint8).copy()).to(dev)
     d = torch.where(choice > 1, dists, 0)
@@ -1338,7 +1450,6 @@ def parse_cases(torch, np, native, parse, emit, dev, real: bytes,
         f"(bytes)")
     # the block step by stage (CUDA events): the raw match, the DP, the emit
     from smallz4_tpu_torch.ops import chunkmatch as cm
-    from smallz4_tpu_torch.ops import pipeline
 
     args = big_block["args"]
     halo, bufs, cand, vhi, lim, cg, cp, _, n_chunks, _ = args

@@ -12,48 +12,81 @@
 // round's "changed" flag stays in device memory.
 //
 // A block owns tiles of 2,048 positions (4 a thread), the same ones in
-// every phase.  A round:
-//   P1  literal flags of the policy; each tile's first non-literal position.
+// every phase.  The evaluation follows each position's jumps (a literal to
+// i + 1, a match to i + length, the absorbing tail i >= limit = n - 5 to
+// itself at cost 0).  Jumps only go forward and integer sums are exact in
+// any order, so it runs on two levels: inside a tile in shared memory, and
+// across tiles only over the few positions where some path enters a tile.
+// A round:
 //   P2  num_lit[i] = (the first non-literal after i) - i, from a suffix min
-//       over the thread's 4 positions, the later threads and the later
-//       tiles; then each position's step cost and jump target, packed as
-//       one 64-bit word W[i] = nxt << 32 | acc (the absorbing tail, i >=
-//       n - 5, is acc 0 jumping to itself).
-//   P3  pointer jumping in place: W[i] <- (acc + acc[nxt], nxt[nxt]) until
-//       every jump reaches the tail.  A word is read and written whole, so
-//       a block that reads a word already advanced this round still gets a
-//       consistent (sum, target) pair, which only shortens the rounds.
-//   P4  cost[i] = acc; and, when a claim reaches tier 2 (length >= 19) and
-//       another improvement follows, the range-min table: for levels k =
-//       1..7, the offset (0..2^k - 1) of the last argmin of cost over
-//       [j, j + 2^k), one byte a level, packed into a 64-bit word a
+//       over the thread's 4 positions, the later threads and the first
+//       later tile that has a non-literal (the last warp's look-forward
+//       over the tiles' first non-literals, agg); each position's step
+//       cost and first jump.
+//   E1  (fused into P2) in-tile resolve: the tile's words W = nxt << 32 |
+//       acc jump in shared memory (each thread's own in registers) until
+//       every target is at or past the tile's end or in the tail: first
+//       within a thread's 4 positions, then within a warp's 128 (warp
+//       barriers only), then across the tile (one block barrier a round,
+//       two copies of the words, at most log2 of its 16 warps rounds).  W'[i] = (exit, sum to the exit) goes to
+//       global memory.  Every first jump that leaves the tile below limit
+//       lands on an entry: the first block to claim it (atomicExch of the
+//       evaluation's number on its mark) appends it to one global list,
+//       one atomicAdd a warp.
+//       The exit of every position is an entry or in the tail, so the
+//       entries are closed under exit.
+//   E2  global pointer jumping over the entries only: W'[p] <- (exit of
+//       W'[x], sum + sum of W'[x]), x = exit of W'[p], a round a grid
+//       barrier, until every entry's exit is in the tail.  A word is read
+//       and written whole, so a word another block has already advanced
+//       this round is still a consistent (target, sum) pair, which only
+//       shortens the rounds.  A path crosses at least one tile a hop, so
+//       the rounds are log2 of the tiles the longest path crosses.  Only
+//       an entry's thread writes its word, so the thread keeps it (for its
+//       first entries) in registers: a round is one gather an entry.  A
+//       list of at most 2,048 entries runs in block 0 alone, a block
+//       barrier a round instead of a grid barrier.
+//   P4  (with E3) cost[i] = sum of W'[i] + (its exit below limit ? the
+//       exit's final sum : 0); and, when a claim reaches tier 2 (length >=
+//       19) and another improvement follows, the range-min table: for
+//       levels k = 1..7, the offset (0..2^k - 1) of the last argmin of cost
+//       over [j, j + 2^k), one byte a level, packed into a 64-bit word a
 //       position (level 0 is the position itself), built in shared memory
-//       from the tile's costs and a 128-position halo.
+//       from the tile's costs and a 128-position halo whose costs come the
+//       same way.
 //   P5  the improvement: the literal, tier 1 (lengths 4..18) in the
 //       ascending `<=` scan from the tile's costs staged in shared memory,
-//       each tier >= 2 as (min, last argmin) of two table lookups, the
-//       MAX_SAME_LETTER distance-1 shortcut overriding the scan.  Any change
-//       raises the round's flag.
+//       each tier >= 2 as (min, last argmin) of two table lookups (four
+//       tiers' lookups in flight at a time), the MAX_SAME_LETTER
+//       distance-1 shortcut overriding the scan.  Any change
+//       raises the round's flag.  Each tile's first non-literal of the new
+//       policy goes to agg for the next round's P2.
 // The result is the reference's, round for round: the same decisions, the
 // same costs of the final policy (over the whole array, padding
 // included), the same `converged` when max_iters cuts the iteration.
 //
 // Bound: the inputs (lens, dists) read once and the outputs (choice, cost)
 // written once, 16 bytes a position: 20 us at 4 MiB on 3.35 TB/s.  The
-// design moves, a round, 66 bytes a position outside the jump rounds (more
-// where tiers reach the table) and 24 a position a jump round, of which an
-// evaluation takes log2 of the policy's longest path in tokens (about 20
-// at 4 MiB), so the jump rounds carry most of its traffic; their working
-// set, W (8 bytes a position, 32 MB at 4 MiB), fits the 50 MB L2.  A round
-// takes 4 grid barriers and one a jump round.
+// design moves, a round, 62 bytes a position (more where tiers reach the
+// table), 20 an entry for its mark, its list slot and its word, and 16 an
+// entry a global round; on real text a tile has a few entries, so the
+// global rounds move little and the round is about 3 + log2(tiles) grid
+// barriers and one pass over the arrays.  Jumping every position
+// globally instead would move 24 bytes a position a jump round, about 20
+// jump rounds an evaluation at 4 MiB.  What bounds the design on the card
+// is latency: a block resolves its tiles one after another, each a chain
+// of block barriers and memory round trips.
 //
-// Barriers: an arrival counter and a generation word (the last block to
-// arrive resets the counter and bumps the generation), so the state needs
-// no reset between calls.  The round flags and the longest scanned claim
-// are 64-bit words tagged with the call's epoch in the high half and only
-// ever raised with atomicMax, so they too need no reset.  Data written
-// during the launch is read through L2 (ld.global.cg): L1 is not coherent
-// across SMs.
+// Barriers: arrivals and a generation in one word (the last block to
+// arrive clears the arrivals and bumps the generation in one atomic), so
+// the state needs no reset between calls.  The round flags and the
+// longest scanned claim are 64-bit words tagged with the call's epoch in
+// the high half and only ever raised with atomicMax, so they too need no
+// reset.  The entry marks
+// live in the scratch, which the wrapper does not clear: the launch zeroes
+// them once, and an evaluation marks with its own number (1, 2, ...), so
+// nothing is cleared between rounds.  Data written during the launch is
+// read through L2 (ld.global.cg): L1 is not coherent across SMs.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -74,6 +107,18 @@ constexpr int BLOCK_END_LITERALS = 5;
 constexpr int BIG = 1 << 30;              // cost past the array
 constexpr int MAX_N = 1 << 26;
 constexpr unsigned FULL = 0xFFFFFFFFu;
+constexpr unsigned long long HI = 0xFFFFFFFF00000000ull;
+constexpr unsigned long long NOWHERE = 0x7FFFFFFFull << 32;  // no jump
+// shared memory: the table's costs and offsets (P4, P5), or two copies of
+// the tile's words (E1), one phase at a time
+constexpr int TABLE_SMEM = (4 + LEVELS) * (TILE + HALO);
+constexpr int WORD_SMEM = 2 * 8 * TILE;
+constexpr int SMEM = TABLE_SMEM > WORD_SMEM ? TABLE_SMEM : WORD_SMEM;
+// a thread's share of a tile and its halo in P4
+constexpr int SPAN_LOADS = (TILE + HALO + THREADS - 1) / THREADS;
+constexpr int HELD = 2;      // entries a thread keeps in registers in E2
+constexpr int SOLO_HELD = 4;  // ... when block 0 runs E2 alone
+constexpr int TIER_ILP = 4;  // tiers >= 2 looked up together in P5
 
 __device__ __forceinline__ unsigned ld_acquire(const unsigned* p) {
   unsigned v;
@@ -88,20 +133,21 @@ __device__ __forceinline__ unsigned long long ld_acquire64(
   return v;
 }
 
-// every block of the (co-resident) grid arrives before any leaves
-__device__ void grid_sync(unsigned* count, unsigned* gen) {
+// every block of the (co-resident) grid arrives before any leaves.  One
+// word: the arrivals in its low 16 bits (a grid has fewer blocks), the
+// generation above them; the last block to arrive clears the arrivals and
+// bumps the generation with one atomic, the others wait for the bump.
+__device__ void grid_sync(unsigned* bar) {
   __syncthreads();
   if (threadIdx.x == 0) {
-    const unsigned g = ld_acquire(gen);
     __threadfence();
-    if (atomicAdd(count, 1u) == gridDim.x - 1) {
-      atomicExch(count, 0u);
+    const unsigned old = atomicAdd(bar, 1u);
+    if ((old & 0xFFFFu) == gridDim.x - 1) {
+      atomicAdd(bar, 0x10000u - gridDim.x);
       __threadfence();
-      atomicAdd(gen, 1u);
     } else {
-      while (ld_acquire(gen) == g) __nanosleep(32);
+      while (((ld_acquire(bar) ^ old) >> 16) == 0) __nanosleep(32);
     }
-    __threadfence();
   }
   __syncthreads();
 }
@@ -136,6 +182,11 @@ __device__ __forceinline__ int clamp_claim(int len, int i, int limit) {
   return (L >= MIN_MATCH && i < limit) ? L : 1;
 }
 
+// a position that ends a literal run (the block end and padding too)
+__device__ __forceinline__ bool non_literal(int c, int i, int limit, int n) {
+  return !((c <= 1 || i >= limit) && i < n);
+}
+
 __device__ __forceinline__ int lit_extra(int num_lit) {
   return (num_lit == 15 ||
           (num_lit >= 15 + TIER_W && (num_lit - 15) % TIER_W == 0)) ? 1 : 0;
@@ -145,20 +196,35 @@ __device__ __forceinline__ int extra_match(int len) {
   return len <= TIER0_HI ? 3 : 4 + (len - (TIER0_HI + 1)) / TIER_W;
 }
 
-__global__ void __launch_bounds__(THREADS)
-parse_kernel(const int32_t* __restrict__ lens,
-             const int32_t* __restrict__ dists, int32_t* choice,
-             int32_t* cost, int32_t* flags, unsigned long long* W,
-             unsigned long long* table, uint8_t* lit_cost, int32_t* agg,
-             unsigned long long* state, int N, int n, int max_iters,
-             unsigned epoch) {
-  __shared__ int s_cost[TILE + HALO];
-  __shared__ uint8_t s_off[LEVELS][TILE + HALO];
-  __shared__ int s_red[WARPS];
-  __shared__ int s_bcast;
+__device__ __forceinline__ int target(unsigned long long w) {
+  return (int)(w >> 32);
+}
 
-  unsigned* count = reinterpret_cast<unsigned*>(state + 1);
-  unsigned* gen = reinterpret_cast<unsigned*>(state + 2);
+// the word of two jumps: w's sum plus w2's, to w2's target
+__device__ __forceinline__ unsigned long long join(unsigned long long w,
+                                                   unsigned long long w2) {
+  return (w2 & HI) | (unsigned)((unsigned)w + (unsigned)w2);
+}
+
+__global__ void __launch_bounds__(THREADS, 2)
+parse_kernel(const int32_t* __restrict__ lens,
+             const int32_t* __restrict__ dists, int32_t* __restrict__ choice,
+             int32_t* __restrict__ cost, int32_t* flags,
+             unsigned long long* __restrict__ W,
+             unsigned long long* __restrict__ table,
+             uint8_t* __restrict__ lit_cost, int32_t* __restrict__ agg,
+             unsigned* __restrict__ mark, int32_t* __restrict__ list,
+             int32_t* __restrict__ n_entries, unsigned long long* state,
+             int N, int n, int max_iters, unsigned epoch) {
+  __shared__ __align__(16) unsigned char s_raw[SMEM];
+  __shared__ int s_red[WARPS];
+  __shared__ int s_bcast, s_later;
+  int* s_cost = reinterpret_cast<int*>(s_raw);
+  uint8_t(*s_off)[TILE + HALO] = reinterpret_cast<uint8_t(*)[TILE + HALO]>(
+      s_raw + 4 * (TILE + HALO));
+  unsigned long long* s_w = reinterpret_cast<unsigned long long*>(s_raw);
+
+  unsigned* bar = reinterpret_cast<unsigned*>(state + 1);
   unsigned long long* jump_flag = state + 3;
   unsigned long long* change_flag = state + 4;
   unsigned long long* max_len = state + 5;
@@ -167,58 +233,70 @@ parse_kernel(const int32_t* __restrict__ lens,
   const int limit = n - BLOCK_END_LITERALS;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
 
-  // P0: the first policy takes every clamped claim; the longest claim the
-  // scan will see (the shortcut's are not scanned)
+  // P0: the first policy takes every clamped claim; each tile's first
+  // non-literal; the longest claim the scan will see (the shortcut's are
+  // not scanned); the entry marks and the entry count cleared
   int lmax = 1;
   for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
     const int i0 = t * TILE + threadIdx.x * PER;
+    int m = N;
 #pragma unroll
-    for (int q = 0; q < PER; ++q) {
+    for (int q = PER - 1; q >= 0; --q) {
       const int i = i0 + q;
-      if (i >= N) break;
+      if (i >= N) continue;
       const int L = clamp_claim(lens[i], i, limit);
       choice[i] = L;
+      __stcg(mark + i, 0u);
       if (!(L >= MAX_SAME_LETTER && dists[i] == 1)) lmax = max(lmax, L);
+      if (non_literal(L, i, limit, n)) m = i;
     }
+    m = block_min(m, s_red);
+    if (threadIdx.x == 0) __stcg(agg + t, m);
   }
   lmax = -block_min(-lmax, s_red);
   if (threadIdx.x == 0) atomicMax(max_len, tag | (unsigned)lmax);
+  if (blockIdx.x == 0 && threadIdx.x == 0) __stcg(n_entries, 0);
+  grid_sync(bar);
 
   int it = 0;
   bool changed = true;
-  unsigned g = 0;  // jump rounds of this launch
+  unsigned g = 0;  // jump flag rounds of this launch
   while (true) {
-    // P1: each tile's first non-literal position (N if none)
-    for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
-      const int i0 = t * TILE + threadIdx.x * PER;
-      int m = N;
-#pragma unroll
-      for (int q = PER - 1; q >= 0; --q) {
-        const int i = i0 + q;
-        if (i < N && !((choice[i] <= 1 || i >= limit) && i < n)) m = i;
-      }
-      m = block_min(m, s_red);
-      if (threadIdx.x == 0) __stcg(agg + t, m);
-    }
-    grid_sync(count, gen);
-
-    // P2: literal runs; each position's step and jump
+    const unsigned ev = (unsigned)it + 1;  // this evaluation's mark
+    // P2 + E1: literal runs; steps and first jumps; the in-tile resolve;
+    // the entries
     ++g;
     bool active = false;
     for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
-      int later = N;  // first non-literal of the later tiles
-      for (int u = t + 1 + threadIdx.x; u < tiles; u += THREADS)
-        later = min(later, __ldcg(agg + u));
-      later = block_min(later, s_red);
-      const int i0 = t * TILE + threadIdx.x * PER;
+      const int s = t * TILE, tend = s + TILE;
+      const int i0 = s + threadIdx.x * PER;
       int c[PER];
+#pragma unroll
+      for (int q = 0; q < PER; ++q) c[q] = i0 + q < N ? choice[i0 + q] : 1;
+      // the first non-literal of the later tiles: the last warp looks
+      // forward over agg, 128 tiles at a time, while the others go on
+      if (warp == WARPS - 1) {
+        int later = N;
+        for (int u0 = t + 1; u0 < tiles && later == N; u0 += 4 * 32) {
+          int v[4];
+#pragma unroll
+          for (int r = 0; r < 4; ++r) {
+            const int u = u0 + r * 32 + lane;
+            v[r] = u < tiles ? __ldcg(agg + u) : N;
+          }
+          later = min(min(v[0], v[1]), min(v[2], v[3]));
+#pragma unroll
+          for (int off = 16; off > 0; off >>= 1)
+            later = min(later, __shfl_xor_sync(FULL, later, off));
+        }
+        if (lane == 0) s_later = later;
+      }
       bool lit[PER];
       int mine = N;  // the thread's first non-literal
 #pragma unroll
       for (int q = PER - 1; q >= 0; --q) {
         const int i = i0 + q;
-        c[q] = i < N ? choice[i] : 1;
-        lit[q] = (c[q] <= 1 || i >= limit) && i < n;
+        lit[q] = !non_literal(c[q], i, limit, n);
         if (i < N && !lit[q]) mine = i;
       }
       // the first non-literal of the later threads of the tile: a suffix
@@ -234,11 +312,15 @@ parse_kernel(const int32_t* __restrict__ lens,
       if (lane == 0) s_red[warp] = incl;
       __syncthreads();
       for (int w = warp + 1; w < WARPS; ++w) after = min(after, s_red[w]);
+      int next = min(after, s_later);  // first non-literal after position q
       __syncthreads();
-      int next = min(after, later);  // first non-literal after position q
+      unsigned long long w[PER];
+      int first[PER];  // the first jumps
 #pragma unroll
       for (int q = PER - 1; q >= 0; --q) {
         const int i = i0 + q;
+        w[q] = NOWHERE;
+        first[q] = 0;
         if (i >= N) continue;
         const int lx = 1 + lit_extra(next - i);
         int step, nxt;
@@ -253,58 +335,218 @@ parse_kernel(const int32_t* __restrict__ lens,
           nxt = min(i + c[q], N - 1);
         }
         lit_cost[i] = (uint8_t)lx;
-        __stcg(W + i, ((unsigned long long)(unsigned)nxt << 32) |
-                          (unsigned)step);
-        active |= i < limit && nxt < limit;
+        w[q] = ((unsigned long long)(unsigned)nxt << 32) | (unsigned)step;
+        first[q] = nxt;
+        // E1 starts in the thread: a jump to one of its later positions
+        // takes that one's word (already resolved past the thread)
+#pragma unroll
+        for (int r = q + 1; r < PER; ++r)
+          if (nxt == i0 + r && nxt < limit) w[q] = join(w[q], w[r]);
+        s_w[i - s] = w[q];
         if (!lit[q]) next = i;
       }
+      // E1 in the warp: jump inside the warp's 128 positions (each lane
+      // wrote its own words), then in the tile until every target leaves
+      // it or rests in the tail; the targets are read before any word of
+      // the round moves
+      const int wend = min(s + (warp + 1) * 32 * PER, tend);
+      bool in_warp = false;
+#pragma unroll
+      for (int q = 0; q < PER; ++q)
+        in_warp |= target(w[q]) < wend && target(w[q]) < limit;
+      __syncwarp();
+      while (__any_sync(FULL, in_warp)) {
+        unsigned long long nw[PER];
+#pragma unroll
+        for (int q = 0; q < PER; ++q) {
+          const int nx = target(w[q]);
+          nw[q] = (i0 + q < N && nx < wend && nx < limit)
+                      ? join(w[q], s_w[nx - s]) : w[q];
+        }
+        __syncwarp();
+        in_warp = false;
+#pragma unroll
+        for (int q = 0; q < PER; ++q) {
+          if (i0 + q >= N) continue;
+          w[q] = nw[q];
+          s_w[i0 + q - s] = w[q];
+          in_warp |= target(w[q]) < wend && target(w[q]) < limit;
+        }
+        __syncwarp();
+      }
+      // the tile's rounds read one copy of the words and write the other,
+      // one block barrier a round
+      bool open = false;
+#pragma unroll
+      for (int q = 0; q < PER; ++q)
+        open |= target(w[q]) < tend && target(w[q]) < limit;
+      for (int side = 0; __syncthreads_or(open); side ^= 1) {
+        const unsigned long long* from = s_w + side * TILE;
+        unsigned long long* to = s_w + (side ^ 1) * TILE;
+        open = false;
+#pragma unroll
+        for (int q = 0; q < PER; ++q) {
+          if (i0 + q >= N) continue;
+          const int nx = target(w[q]);
+          if (nx < tend && nx < limit) w[q] = join(w[q], from[nx - s]);
+          to[i0 + q - s] = w[q];
+          open |= target(w[q]) < tend && target(w[q]) < limit;
+        }
+      }
+#pragma unroll
+      for (int q = 0; q < PER; ++q)
+        if (i0 + q < N) __stcg(W + i0 + q, w[q]);
+      // the entries: first jumps out of the tile, below limit, each
+      // appended by the first block to mark it this evaluation; the lanes
+      // of a warp that share a target leave it to one (runs of claims
+      // that end together would queue on one mark), and the warp takes
+      // its slots in the list with one atomicAdd
+      bool won[PER];
+      int mine_n = 0;
+#pragma unroll
+      for (int q = 0; q < PER; ++q) {
+        const int p = first[q];
+        const bool out = p >= tend && p < limit;
+        const unsigned same = __match_any_sync(FULL, out ? p : -1);
+        won[q] = out && lane == __ffs(same) - 1;
+      }
+#pragma unroll
+      for (int q = 0; q < PER; ++q) {
+        won[q] = won[q] && atomicExch(mark + first[q], ev) != ev;
+        mine_n += won[q];
+      }
+      int upto = mine_n;  // the warp's inclusive prefix of the wins
+#pragma unroll
+      for (int off = 1; off < 32; off <<= 1) {
+        const int o = __shfl_up_sync(FULL, upto, off);
+        if (lane >= off) upto += o;
+      }
+      int slot = 0;
+      if (lane == 31 && upto) slot = atomicAdd(n_entries, upto);
+      slot = __shfl_sync(FULL, slot, 31) + upto - mine_n;
+#pragma unroll
+      for (int q = 0; q < PER; ++q)
+        if (won[q]) __stcg(list + slot++, first[q]);
+      active |= mine_n > 0;
     }
     if (__syncthreads_or(active) && threadIdx.x == 0)
       atomicMax(jump_flag, tag | g);
-    grid_sync(count, gen);
+    grid_sync(bar);
 
-    // P3: pointer jumping until every jump lands in the absorbing tail
-    while (flag_at_least(jump_flag, tag | g, &s_bcast)) {
-      ++g;
-      active = false;
-      for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
-        const int i0 = t * TILE + threadIdx.x * PER;
+    // E2: pointer jumping over the entries until every one reaches the
+    // tail.  An entry's word has no writer but its thread, so a thread
+    // keeps its first entries and their words in registers.  A list that
+    // fits one block's registers runs in block 0 alone, a block barrier a
+    // round, while the others wait at one grid barrier; a longer one runs
+    // on the grid, a grid barrier a round.
+    const int entries = __ldcg(n_entries);
+    if (entries <= THREADS * SOLO_HELD) {
+      if (blockIdx.x == 0) {
+        int sp[SOLO_HELD];
+        unsigned long long sw[SOLO_HELD];
 #pragma unroll
-        for (int q = 0; q < PER; ++q) {
-          const int i = i0 + q;
-          if (i >= N) break;
-          const unsigned long long w = __ldcg(W + i);
-          const int nx = (int)(w >> 32);
-          if (nx >= limit) continue;
-          const unsigned long long w2 = __ldcg(W + nx);
-          __stcg(W + i, (w2 & 0xFFFFFFFF00000000ull) |
-                            (unsigned)((unsigned)w + (unsigned)w2));
-          active |= (int)(w2 >> 32) < limit;
+        for (int h = 0; h < SOLO_HELD; ++h) {
+          const int k = threadIdx.x + h * THREADS;
+          sp[h] = k < entries ? __ldcg(list + k) : -1;
+        }
+        bool more = false;
+#pragma unroll
+        for (int h = 0; h < SOLO_HELD; ++h) {
+          sw[h] = sp[h] >= 0 ? __ldcg(W + sp[h]) : NOWHERE;
+          more |= target(sw[h]) < limit;
+        }
+        while (__syncthreads_or(more)) {
+          unsigned long long w2[SOLO_HELD];
+#pragma unroll
+          for (int h = 0; h < SOLO_HELD; ++h)
+            w2[h] = target(sw[h]) < limit ? __ldcg(W + target(sw[h])) : 0;
+          more = false;
+#pragma unroll
+          for (int h = 0; h < SOLO_HELD; ++h) {
+            if (target(sw[h]) >= limit) continue;
+            sw[h] = join(sw[h], w2[h]);
+            __stcg(W + sp[h], sw[h]);
+            more |= target(sw[h]) < limit;
+          }
         }
       }
-      if (__syncthreads_or(active) && threadIdx.x == 0)
-        atomicMax(jump_flag, tag | g);
-      grid_sync(count, gen);
+      grid_sync(bar);
+    } else {
+      const int k0 = blockIdx.x * THREADS + threadIdx.x;
+      int hp[HELD];
+      unsigned long long hw[HELD];
+#pragma unroll
+      for (int h = 0; h < HELD; ++h) {
+        const int k = k0 + h * gridDim.x * THREADS;
+        hp[h] = k < entries ? __ldcg(list + k) : -1;
+      }
+#pragma unroll
+      for (int h = 0; h < HELD; ++h)
+        hw[h] = hp[h] >= 0 ? __ldcg(W + hp[h]) : NOWHERE;
+      while (flag_at_least(jump_flag, tag | g, &s_bcast)) {
+        ++g;
+        active = false;
+        unsigned long long w2[HELD];
+#pragma unroll
+        for (int h = 0; h < HELD; ++h)
+          w2[h] = target(hw[h]) < limit ? __ldcg(W + target(hw[h])) : 0;
+#pragma unroll
+        for (int h = 0; h < HELD; ++h) {
+          if (target(hw[h]) >= limit) continue;
+          hw[h] = join(hw[h], w2[h]);
+          __stcg(W + hp[h], hw[h]);
+          active |= target(hw[h]) < limit;
+        }
+        for (int k = k0 + HELD * gridDim.x * THREADS; k < entries;
+             k += gridDim.x * THREADS) {
+          const int p = __ldcg(list + k);
+          const unsigned long long wp = __ldcg(W + p);
+          if (target(wp) >= limit) continue;
+          const unsigned long long w2 = __ldcg(W + target(wp));
+          __stcg(W + p, join(wp, w2));
+          active |= target(w2) < limit;
+        }
+        if (__syncthreads_or(active) && threadIdx.x == 0)
+          atomicMax(jump_flag, tag | g);
+        grid_sync(bar);
+      }
     }
 
     const bool go = changed && it < max_iters;
     const bool tiers =
         go && (int)(unsigned)ld_acquire64(max_len) > TIER0_HI;
-    // P4: the policy's costs; the range-min table for the improvement
+    // the next evaluation's list starts empty (E2 read its count before
+    // the barrier that ended it)
+    if (blockIdx.x == 0 && threadIdx.x == 0) __stcg(n_entries, 0);
+    // P4 + E3: the policy's costs; the range-min table for the improvement
     for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
       const int s = t * TILE;
-      const int i0 = s + threadIdx.x * PER;
+      const int span = tiers ? TILE + HALO : TILE;
+      // every word of the thread, then every exit's word, then the costs:
+      // the loads of a tile in flight together
+      unsigned long long wj[SPAN_LOADS];
+      int ce[SPAN_LOADS];
 #pragma unroll
-      for (int q = 0; q < PER; ++q) {
-        const int i = i0 + q;
-        if (i < N) __stcg(cost + i, (int)(unsigned)__ldcg(W + i));
+      for (int r = 0; r < SPAN_LOADS; ++r) {
+        const int k = threadIdx.x + r * THREADS;
+        wj[r] = k < span && s + k < N ? __ldcg(W + s + k) : NOWHERE;
+      }
+#pragma unroll
+      for (int r = 0; r < SPAN_LOADS; ++r)
+        ce[r] = target(wj[r]) < limit ? (int)(unsigned)__ldcg(
+                                            W + target(wj[r])) : 0;
+#pragma unroll
+      for (int r = 0; r < SPAN_LOADS; ++r) {
+        const int k = threadIdx.x + r * THREADS, j = s + k;
+        if (k >= span) continue;
+        const int cj = j < N ? (int)(unsigned)wj[r] + ce[r] : BIG;
+        if (j < N && k < TILE) __stcg(cost + j, cj);
+        if (tiers) {
+          s_cost[k] = cj;
+          s_off[0][k] = 0;
+        }
       }
       if (!tiers) continue;
-      for (int k = threadIdx.x; k < TILE + HALO; k += THREADS) {
-        const int j = s + k;
-        s_cost[k] = j < N ? (int)(unsigned)__ldcg(W + j) : BIG;
-        s_off[0][k] = 0;
-      }
       __syncthreads();
 #pragma unroll
       for (int lev = 1; lev < LEVELS; ++lev) {
@@ -332,23 +574,31 @@ parse_kernel(const int32_t* __restrict__ lens,
       __syncthreads();
     }
     if (!go) break;
-    grid_sync(count, gen);
+    grid_sync(bar);
 
-    // P5: re-decide every position
+    // P5: re-decide every position; each tile's first non-literal
     bool ch = false;
     for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
       const int s = t * TILE;
+      const int i0 = s + threadIdx.x * PER;
+      int len[PER], cur[PER];  // loaded before the staging's barrier
+#pragma unroll
+      for (int q = 0; q < PER; ++q) {
+        len[q] = i0 + q < N ? lens[i0 + q] : 1;
+        cur[q] = i0 + q < N ? choice[i0 + q] : 0;
+      }
       for (int k = threadIdx.x; k < TILE + TIER0_HI + 1; k += THREADS) {
         const int j = s + k;
         s_cost[k] = j < N ? __ldcg(cost + j) : 0;
       }
       __syncthreads();
+      int m = N;
 #pragma unroll
-      for (int q = 0; q < PER; ++q) {
+      for (int q = PER - 1; q >= 0; --q) {
         const int k = threadIdx.x * PER + q;
         const int i = s + k;
-        if (i >= N) break;
-        const int L = clamp_claim(lens[i], i, limit);
+        if (i >= N) continue;
+        const int L = clamp_claim(len[q], i, limit);
         int best_l;
         if (i >= limit) {
           best_l = 1;
@@ -365,32 +615,58 @@ parse_kernel(const int32_t* __restrict__ lens,
               best_l = ln;
             }
           }
+          // TIER_ILP tiers at a time: their lookups in flight together,
+          // their minima taken in ascending order
           for (int tier = 2, lo = TIER0_HI + 1; lo <= L;
-               ++tier, lo += TIER_W) {
-            const int e = min(L, lo + TIER_W - 1);
-            const int lev = 31 - __clz(e - lo + 1);
-            const int a = i + lo, b = i + e - (1 << lev) + 1;
-            const int j1 = a + (int)((__ldcg(table + a) >> (8 * lev)) & 0xFF);
-            const int j2 = b + (int)((__ldcg(table + b) >> (8 * lev)) & 0xFF);
-            const int c1 = __ldcg(cost + j1), c2 = __ldcg(cost + j2);
-            const bool take2 = c2 < c1 || (c2 == c1 && j2 > j1);
-            const int tot = (take2 ? c2 : c1) + 2 + tier;
-            if (tot <= best_c) {
-              best_c = tot;
-              best_l = (take2 ? j2 : j1) - i;
+               tier += TIER_ILP, lo += TIER_ILP * TIER_W) {
+            int j1[TIER_ILP], j2[TIER_ILP], lev[TIER_ILP];
+            unsigned long long t1[TIER_ILP], t2[TIER_ILP];
+#pragma unroll
+            for (int u = 0; u < TIER_ILP; ++u) {
+              const int lu = lo + u * TIER_W, e = min(L, lu + TIER_W - 1);
+              lev[u] = lu <= L ? 31 - __clz(e - lu + 1) : 0;
+              j1[u] = i + lu;
+              j2[u] = i + e - (1 << lev[u]) + 1;
+              t1[u] = lu <= L ? __ldcg(table + j1[u]) : 0;
+              t2[u] = lu <= L ? __ldcg(table + j2[u]) : 0;
+            }
+            int c1[TIER_ILP], c2[TIER_ILP];
+#pragma unroll
+            for (int u = 0; u < TIER_ILP; ++u) {
+              const bool ok = lo + u * TIER_W <= L;
+              j1[u] += (int)((t1[u] >> (8 * lev[u])) & 0xFF);
+              j2[u] += (int)((t2[u] >> (8 * lev[u])) & 0xFF);
+              c1[u] = ok ? __ldcg(cost + j1[u]) : 0;
+              c2[u] = ok ? __ldcg(cost + j2[u]) : 0;
+            }
+#pragma unroll
+            for (int u = 0; u < TIER_ILP; ++u) {
+              if (lo + u * TIER_W > L) break;
+              const bool take2 =
+                  c2[u] < c1[u] || (c2[u] == c1[u] && j2[u] > j1[u]);
+              const int tot = (take2 ? c2[u] : c1[u]) + 2 + tier + u;
+              if (tot <= best_c) {
+                best_c = tot;
+                best_l = (take2 ? j2[u] : j1[u]) - i;
+              }
             }
           }
         }
-        if (best_l != choice[i]) {
-          choice[i] = best_l;
-          ch = true;
-        }
+        cur[q] = best_l != cur[q] ? best_l : 0;  // 0: unchanged
+        if (non_literal(best_l, i, limit, n)) m = i;
       }
-      __syncthreads();
+#pragma unroll
+      for (int q = 0; q < PER; ++q) {
+        if (cur[q] == 0) continue;
+        choice[i0 + q] = cur[q];
+        ch = true;
+      }
+      m = block_min(m, s_red);  // its barrier also frees s_cost
+      if (threadIdx.x == 0) __stcg(agg + t, m);
     }
     if (__syncthreads_or(ch) && threadIdx.x == 0)
       atomicMax(change_flag, tag | (unsigned)(it + 1));
-    grid_sync(count, gen);
+    grid_sync(bar);
     changed = flag_at_least(change_flag, tag | (unsigned)(it + 1), &s_bcast);
     ++it;
   }
@@ -400,9 +676,12 @@ parse_kernel(const int32_t* __restrict__ lens,
   }
 }
 
+// scratch: W and the table (8 bytes a position each), the tiles' first
+// non-literals and the entry count, the marks and the entry list (4 bytes
+// a position each), the literal costs (1 byte a position)
 size_t scratch_bytes(long long N) {
   const long long tiles = (N + TILE - 1) / TILE;
-  return (size_t)(16 * N + 4 * tiles + N);
+  return (size_t)(16 * N + 4 * (tiles + 2) + 8 * N + N);
 }
 
 }  // namespace
@@ -418,9 +697,10 @@ int s4_parse_scratch_bytes(int N) { return (int)scratch_bytes(N); }
 // Policy-iteration parse of int32 claims lens, dists [N] whose first n
 // positions are the block, at most max_iters improvements: choice and cost
 // int32 [N], flags int32 [2] = (converged, rounds).  `scratch` holds
-// s4_parse_scratch_bytes(N) bytes, 8-byte aligned; `state` int64 words 1..5
-// are zero before the first call on the stream and reused by later calls
-// with epochs 1, 2, ... < 2^30.  One cooperative launch.
+// s4_parse_scratch_bytes(N) bytes, 8-byte aligned, of any content; `state`
+// int64 words 1..5 are zero before the first call on the stream and reused
+// by later calls with epochs 1, 2, ... < 2^30 (word 2 is unused).  One
+// cooperative launch.
 int s4_parse(const int32_t* lens, const int32_t* dists, int32_t* choice,
              int32_t* cost, int32_t* flags, void* scratch,
              unsigned long long* state, int N, int n, int max_iters,
@@ -442,9 +722,14 @@ int s4_parse(const int32_t* lens, const int32_t* dists, int32_t* choice,
   unsigned long long* W = static_cast<unsigned long long*>(scratch);
   unsigned long long* table = W + N;
   int32_t* agg = reinterpret_cast<int32_t*>(table + N);
-  uint8_t* lit_cost = reinterpret_cast<uint8_t*>(agg + tiles);
-  void* args[] = {&lens, &dists, &choice, &cost, &flags, &W, &table,
-                  &lit_cost, &agg, &state, &N, &n, &max_iters, &epoch};
+  int32_t* n_entries = agg + tiles;
+  unsigned* mark = reinterpret_cast<unsigned*>(n_entries + 2);
+  int32_t* list = reinterpret_cast<int32_t*>(mark + N);
+  uint8_t* lit_cost = reinterpret_cast<uint8_t*>(list + N);
+  void* args[] = {&lens,   &dists, &choice, &cost,      &flags,
+                  &W,      &table, &lit_cost, &agg,     &mark,
+                  &list,   &n_entries, &state, &N,      &n,
+                  &max_iters, &epoch};
   err = cudaLaunchCooperativeKernel((const void*)parse_kernel, dim3(grid),
                                     dim3(THREADS), args, 0,
                                     static_cast<cudaStream_t>(stream));

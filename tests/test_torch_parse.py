@@ -11,6 +11,15 @@ the reference is cut.  Its choice must equal ``native.estimate_costs``.
 Tests marked ``cuda`` hold the kernel against the plain version on the
 card, on the same cases, a 1 MiB block of the real fixture's claims and a
 65,535-long repeat, and count its launches.
+
+The kernel evaluates a policy on two levels (each tile resolves its jumps
+in shared memory, global pointer jumping runs over the entries only):
+``_two_level_eval`` is a numpy model of that evaluation, held equal to the
+port's and the JAX package's ``_policy_eval`` at a tile of 64 and at the
+kernel's.  The synthetic worst cases of ``chip_smoke.parse_claims``
+(claims that land on tile edges and on limit, every position an entry,
+N not a multiple of the tile, seeded claims across many tiles) run here
+at N <= 2^17 against the JAX package and at phase 3e's sizes on the card.
 """
 import lzma
 import pathlib
@@ -19,6 +28,7 @@ import numpy as np
 import pytest
 import torch
 
+from chip_smoke import PARSE_CASES, PARSE_TILE, parse_claims
 from smallz4_tpu_torch import format as fmt
 from smallz4_tpu_torch import native
 from smallz4_tpu_torch.ops import _cuda, parse
@@ -26,6 +36,10 @@ from smallz4_tpu_torch.ops import _cuda, parse
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 N_SMALL = 8192        # the common padded length of the small cases
 N_LARGE = 1 << 17     # the shortcut needs a block past MAX_SAME_LETTER
+MODEL_TILE = 64       # the model's small tile: N_SMALL holds 128 of them
+# the N of parse_claims' cases on the CPU
+CLAIM_N = {"periodic": N_LARGE, "tile edges": N_LARGE, "limit landing":
+           1 << 16, "odd N": 3 * PARSE_TILE + 777, "synthetic": N_LARGE}
 
 
 def _claims(data: bytes):
@@ -95,6 +109,14 @@ def _padded(data: bytes):
     return dl, dd, n
 
 
+def _inputs(case: str):
+    """(lens, dists, n, block bytes or None): a CASES block padded, or the
+    claims of parse_claims' case at its CPU size."""
+    if case in CASES:
+        return (*_padded(CASES[case]), CASES[case])
+    return (*parse_claims(np, case, CLAIM_N[case], seed=13), None)
+
+
 @pytest.fixture(scope="module")
 def jparse():
     pytest.importorskip("jax")
@@ -119,10 +141,9 @@ def _port(dl, dd, n, max_iters=48, device="cpu"):
                                   max_iters)
 
 
-@pytest.mark.parametrize("case", list(CASES))
+@pytest.mark.parametrize("case", list(CASES) + list(PARSE_CASES))
 def test_estimate_costs_equals_reference(jparse, case):
-    data = CASES[case]
-    dl, dd, n = _padded(data)
+    dl, dd, n, data = _inputs(case)
     want_choice, want_cost, want_conv = _reference(jparse, dl, dd, n, 48)
     choice, cost, conv = parse.estimate_costs_device(
         torch.from_numpy(dl), torch.from_numpy(dd), n)
@@ -133,8 +154,99 @@ def test_estimate_costs_equals_reference(jparse, case):
     lens = dl[:n].copy()
     native.estimate_costs(lens, dd[:n].copy())
     np.testing.assert_array_equal(choice.numpy()[:n], lens)
-    assert native.emit_block(data, choice.numpy()[:n].copy(), dd[:n]) \
-        == native.emit_block(data, lens, dd[:n])
+    if data is not None:  # claims of parse_claims have no block bytes
+        assert native.emit_block(data, choice.numpy()[:n].copy(), dd[:n]) \
+            == native.emit_block(data, lens, dd[:n])
+
+
+def _two_level_eval(choice, limit: int, n_end: int, tile: int):
+    """numpy model of csrc/parse.cu's policy evaluation: (cost, entries,
+    global rounds).  Each position's first jump and step as the reference
+    computes them (a literal to i + 1 at 1 or 2 bytes by its run, a match
+    to i + length, the tail i >= limit to itself at 0); each tile resolves
+    its jumps until they leave it or rest in the tail; the first jumps
+    that leave a tile below limit are the entries; synchronous pointer
+    jumping over the entries only until every entry's exit is in the tail;
+    then cost = sum to the exit + the exit's sum."""
+    choice = np.asarray(choice, np.int64)
+    N = choice.shape[0]
+    idx = np.arange(N)
+    term = idx >= limit
+    lit = ((choice <= 1) | term) & (idx < n_end)
+    stops = np.minimum.accumulate(np.where(lit, N, idx)[::-1])[::-1]
+    num_lit = np.append(stops[1:], N) - idx  # to the next non-literal
+    extra = (num_lit == 15) | ((num_lit >= 270)
+                               & ((num_lit - 15) % 255 == 0))
+    match = np.where(choice <= 18, 3, 4 + (choice - 19) // 255)
+    step = np.where(term, 0, np.where(lit, 1 + extra, match))
+    first = np.where(term, idx,
+                     np.minimum(idx + np.where(lit, 1, choice), N - 1))
+    tend = (idx // tile + 1) * tile
+    ex, acc = first.copy(), step.copy()
+    while True:  # inside the tiles
+        inside = (ex < tend) & (ex < limit)
+        if not inside.any():
+            break
+        acc, ex = (np.where(inside, acc + acc[ex], acc),
+                   np.where(inside, ex[ex], ex))
+    entries = np.unique(first[(first >= tend) & (first < limit)])
+    rounds = 0
+    while True:  # across the tiles
+        e = entries[ex[entries] < limit]
+        if not e.size:
+            break
+        x = ex[e]
+        acc[e], ex[e] = acc[e] + acc[x], ex[x]
+        rounds += 1
+    return acc + np.where(ex < limit, acc[ex], 0), entries.size, rounds
+
+
+def _policies(case: str):
+    """(choice, n) pairs: for a CASES block or a parse_claims case the
+    first policy (every clamped claim) and the converged one; for
+    "random policy k" three seeded policies at N_SMALL whose matches reach
+    4..18, 19..300 and 300..3,000 positions (across many model tiles)."""
+    if case.startswith("random policy"):
+        rng = np.random.default_rng(int(case.split()[-1]))
+        out = []
+        for _ in range(3):
+            kind = rng.random(N_SMALL)
+            choice = np.select(
+                [kind < 0.5, kind < 0.75, kind < 0.92],
+                [1, rng.integers(4, 19, N_SMALL),
+                 rng.integers(19, 301, N_SMALL)],
+                rng.integers(300, 3001, N_SMALL)).astype(np.int32)
+            out.append((choice, int(rng.integers(N_SMALL - 600,
+                                                 N_SMALL + 1))))
+        return out
+    dl, dd, n, _ = _inputs(case)
+    lens, dists = torch.from_numpy(dl), torch.from_numpy(dd)
+    first = parse._claims(lens, dists, n)[0].numpy()
+    return [(first, n), (parse.estimate_costs_device(lens, dists, n)[0]
+                         .numpy(), n)]
+
+
+@pytest.mark.parametrize("case", list(CASES) + list(PARSE_CASES)
+                         + [f"random policy {k}" for k in range(4)])
+def test_two_level_model_equals_policy_eval(jparse, case):
+    """The model of the kernel's evaluation equals the port's and the JAX
+    package's _policy_eval exactly, at the model tile and the kernel's;
+    its global rounds stay within log2 of the tiles (each entry hop
+    crosses a tile edge)."""
+    import jax.numpy as jnp
+
+    for choice, n in _policies(case):
+        limit = n - fmt.BLOCK_END_LITERALS
+        want = parse._policy_eval(torch.from_numpy(choice), limit, n).numpy()
+        np.testing.assert_array_equal(
+            np.asarray(jparse._policy_eval(jnp.asarray(choice), limit, n)),
+            want)
+        for tile in (MODEL_TILE, PARSE_TILE):
+            cost, entries, rounds = _two_level_eval(choice, limit, n, tile)
+            np.testing.assert_array_equal(cost, want)
+            tiles = -(-choice.shape[0] // tile)
+            assert entries <= choice.shape[0]
+            assert rounds <= max(1, int(np.ceil(np.log2(tiles))))
 
 
 @pytest.mark.parametrize("max_iters", [1, 2, 3])
@@ -259,6 +371,35 @@ def test_kernel_large_blocks_cuda(which):
     native.estimate_costs(lens, dd.copy())
     np.testing.assert_array_equal(choice.cpu().numpy(), lens)
     _kernel_equals_plain(dl, dd, n, 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(PARSE_CASES))
+def test_kernel_worst_cases_cuda(case):
+    """parse_claims' cases at phase 3e's sizes (4 MiB but for limit
+    landing at 1 MiB and odd N at 2^20 + 777): claims landing on tile
+    edges and on limit, every position an entry, seeded claims across
+    many tiles; the converged choice equals native.estimate_costs (the
+    periodic claims at 4 MiB take more than the 48 rounds of the cap)."""
+    dl, dd, n = parse_claims(np, case, PARSE_CASES[case], seed=13)
+    choice, _, conv, rounds = _kernel_equals_plain(dl, dd, n)
+    if not bool(conv):
+        assert int(rounds) == 48
+        return
+    lens = dl[:n].copy()
+    native.estimate_costs(lens, dd[:n].copy())
+    np.testing.assert_array_equal(choice.cpu().numpy()[:n], lens)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("max_iters", [1, 2])
+def test_kernel_round_cap_4mib_cuda(max_iters):
+    """The first 4 MiB block of the real fixture cut after one and after
+    two improvements: unconverged, equal to the plain version."""
+    _cuda_device()
+    dl, dd = _claims(_real_block(4 << 20))
+    _, _, conv, rounds = _kernel_equals_plain(dl, dd, len(dl), max_iters)
+    assert not bool(conv) and int(rounds) == max_iters
 
 
 @pytest.mark.cuda
