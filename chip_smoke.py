@@ -852,15 +852,13 @@ def encode_run(torch, _cuda, native, pipeline, name, data, expect, **kw):
     if counts != expect:
         raise AssertionError(f"{name}: launches {counts} != {expect}")
     log(f"    {name}: {len(data)} B -> {len(got)} B, equal to native; "
-        f"{len(data) / wall / 1e6:.3f} MB/s e2e ({wall:.3f} s); device span "
-        f"of the match calls {stats['device_match_ms']:.3f} ms; refine "
+        f"{len(data) / wall / 1e6:.3f} MB/s e2e ({wall:.3f} s); refine "
         f"{stats['n_refine_positions']}/{stats['n_positions']} positions; "
         f"launches {counts}")
     log(f"    native.compress {len(data) / native_s / 1e6:.3f} MB/s "
-        f"({native_s:.3f} s); host clock: dispatch "
-        f"{stats['device_dispatch']:.3f} s, collect "
-        f"{stats['device_sync']:.3f} s, refine+DP+emit tail "
-        f"{stats['host_refine_dp_emit']:.3f} s")
+        f"({native_s:.3f} s); span self seconds (host clock, pool threads "
+        f"summed): " + ", ".join(f"{k} {v:.3f}" for k, v in stats.items()
+                                if not k.startswith("n_") and k != "wall_s"))
     return counts, stats, got
 
 
@@ -1245,14 +1243,14 @@ def resident_run(torch, _cuda, pipeline, parse, real: bytes, block: int,
 
     blocks = []
     dp_fn = parse.policy_iteration_plain if plain else parse.policy_iteration
-    orig_dp = parse.estimate_costs_device
+    orig_dp = parse.policy_iteration
     orig_step = pipeline._device_resident_block_step
 
     def dp(lens, dists, n, max_iters=48):
         choice, cost, conv, rounds = dp_fn(lens, dists, n, max_iters)
         blocks.append({"lens": lens, "dists": dists, "n": n,
                        "rounds": rounds, "conv": conv})
-        return choice, cost, conv
+        return choice, cost, conv, rounds
 
     def step(*args):
         out = orig_step(*args)
@@ -1260,7 +1258,7 @@ def resident_run(torch, _cuda, pipeline, parse, real: bytes, block: int,
         return out
 
     rep = RunReport(operation="encode", engine="")
-    parse.estimate_costs_device = dp
+    parse.policy_iteration = dp
     pipeline._device_resident_block_step = step
     try:
         torch.cuda.synchronize()
@@ -1271,7 +1269,7 @@ def resident_run(torch, _cuda, pipeline, parse, real: bytes, block: int,
         wall = time.perf_counter() - t
         counts = dict(_cuda.LAUNCHES)
     finally:
-        parse.estimate_costs_device = orig_dp
+        parse.policy_iteration = orig_dp
         pipeline._device_resident_block_step = orig_step
     for b in blocks:
         b.update(rounds=int(b["rounds"]), conv=bool(b["conv"]),
@@ -1314,7 +1312,7 @@ def resident_encode(torch, _cuda, native, pipeline, parse, real: bytes,
         f"{len(real) / plain_wall / 1e6:.3f} MB/s); d2h {d2h} B = "
         f"{d2h / len(real):.4f} B an input byte; chunk engine parity "
         f"{chunk_rate:.3f} MB/s (phase 3); ratio "
-        f"{len(frame) / len(real):.4f}; stages (host clock) "
+        f"{len(frame) / len(real):.4f}; span self seconds (host clock) "
         + ", ".join(f"{k} {v:.3f} s" for k, v in rep.stages.items())
         + f"; launches {counts}")
     log(f"[3e]   rounds a block {[b['rounds'] for b in blocks]}, ok "

@@ -36,6 +36,7 @@ import torch
 from .. import format as fmt
 from .. import native
 from ..parallel import host as host_par
+from ..utils import profiling
 from . import chunkmatch as cm
 from . import emit as dev_emit
 from . import match_finder as mf
@@ -173,9 +174,8 @@ def compress(data, level: int = 9, legacy: bool = False, dictionary=None,
     None reads $SMALLZ4_TPU_KERNEL; see ``_choose_kernel`` for the
     fallback.  ``max_candidates``: the walk's candidate rounds per
     position (parity mode refines the positions it leaves unconverged).
-    ``stats``, if given, receives per-stage wall times and counters
-    (``n_*``), and on a CUDA device the device time of the match search
-    (``device_match_ms``)."""
+    ``stats``, if given, receives the counters (``n_*``) and the self
+    seconds of each span of the call (``utils.profiling``) by name."""
     dev = resolve_device(device)
     data = bytes(data)
     if legacy and dictionary:
@@ -205,20 +205,24 @@ def compress(data, level: int = 9, legacy: bool = False, dictionary=None,
     if dictionary and not legacy:
         dict_tail = bytes(dictionary)[-fmt.MAX_DISTANCE:]
     out = bytearray(fmt.build_frame_header(legacy))
-    stages: dict = {}
-    args = (out, data, dict_tail + data, len(dict_tail),
-            _blocks(len(data), block_size), legacy, parity, stages, dev)
-    if kernel == "chunk":
-        _compress_chunked(*args)
-    else:
-        _compress_sorted(*args, kernel=kernel, max_candidates=max_candidates)
-    out += fmt.build_end_mark(legacy)
-    if stats is not None:
-        stats.update(stages)
-    return bytes(out)
+    counters: dict = {}
+    blocks = _blocks(len(data), block_size)
+    args = (out, data, dict_tail + data, len(dict_tail), blocks, legacy,
+            parity, counters, dev)
+    with profiling.request("encode", stats, n_bytes=len(data),
+                           n_blocks=len(blocks)):
+        if kernel == "chunk":
+            _compress_chunked(*args)
+        else:
+            _compress_sorted(*args, kernel=kernel,
+                             max_candidates=max_candidates)
+        out += fmt.build_end_mark(legacy)
+        if stats is not None:
+            stats.update(counters)
+        return bytes(out)
 
 
-def _compress_chunked(out, data, vdata, d, blocks, legacy, parity, stages,
+def _compress_chunked(out, data, vdata, d, blocks, legacy, parity, counters,
                       dev):
     """Chunk-engine stream loop: one ``match_chunks`` call per GROUP
     chunks; within a block each call carries its last chunk's sorted
@@ -240,7 +244,7 @@ def _compress_chunked(out, data, vdata, d, blocks, legacy, parity, stages,
     count_lock = threading.Lock()  # finish() runs in the worker pool
 
     def add(key, v):
-        stages[key] = stages.get(key, 0) + v
+        counters[key] = counters.get(key, 0) + v
 
     to_dev, to_host = _device_pair(on_card, dev)
 
@@ -264,6 +268,10 @@ def _compress_chunked(out, data, vdata, d, blocks, legacy, parity, stages,
         """Queue every group of one block on the device."""
         bs = end - start
         n_groups = -(-bs // (G * CH))
+        with profiling.span("stream.dispatch", n_groups=n_groups):
+            return dispatch_groups(start, bs, n_groups)
+
+    def dispatch_groups(start, bs, n_groups):
         block_cut = _block_cut(start, legacy)
         halo = block_halo(start)
         entries = []
@@ -286,11 +294,6 @@ def _compress_chunked(out, data, vdata, d, blocks, legacy, parity, stages,
                 cut_pos = CH - fmt.BLOCK_END_NO_MATCH
             else:
                 cut_gram, cut_pos = 0, -1
-            timing = None
-            if on_card:
-                timing = (torch.cuda.Event(enable_timing=True),
-                          torch.cuda.Event(enable_timing=True))
-                timing[0].record()
             cand_d = to_dev(cand)
             # claim validity ends where candidate validity does
             halo, ys = cm.match_chunks(
@@ -304,32 +307,30 @@ def _compress_chunked(out, data, vdata, d, blocks, legacy, parity, stages,
                     + ((cbits, kbits) if parity else ())]
             done = None
             if on_card:
-                timing[1].record()
                 done = torch.cuda.Event()
                 done.record()
-            entries.append((g0, packed, host, done, timing))
+            entries.append((g0, packed, host, done))
         return entries
 
     def collect_block(entries):
         """Wait for one block's results (calling thread); unpacking
         happens in the pool."""
-        fetched = []
-        for g0, packed, host, done, timing in entries:
-            if done is not None:
-                done.synchronize()
-                add("device_match_ms", timing[0].elapsed_time(timing[1]))
-            # own copies: the pinned buffers are released on this thread
-            bits_np, counts_np, pk = (h.numpy().copy() for h in host[:3])
-            maxp = max(1, int(counts_np.max()))
-            if maxp > PREFETCH:
-                pk = packed[:, : min(maxp, CAP)].cpu().numpy()
-            cbits_np, kbits_np = ((host[3].numpy().copy(),
-                                   host[4].numpy().copy())
-                                  if parity else (None, None))
-            add("n_d2h_bytes", bits_np.nbytes + pk.nbytes + counts_np.nbytes
-                + (cbits_np.nbytes + kbits_np.nbytes if parity else 0))
-            fetched.append((g0, bits_np, pk, counts_np, cbits_np, kbits_np))
-        return fetched
+        with profiling.span("stream.collect"):
+            return [collect_group(*e) for e in entries]
+
+    def collect_group(g0, packed, host, done):
+        if done is not None:
+            done.synchronize()
+        # own copies: the pinned buffers are released on this thread
+        bits_np, counts_np, pk = (h.numpy().copy() for h in host[:3])
+        maxp = max(1, int(counts_np.max()))
+        if maxp > PREFETCH:
+            pk = packed[:, : min(maxp, CAP)].cpu().numpy()
+        cbits_np, kbits_np = ((host[3].numpy().copy(), host[4].numpy().copy())
+                              if parity else (None, None))
+        add("n_d2h_bytes", bits_np.nbytes + pk.nbytes + counts_np.nbytes
+            + (cbits_np.nbytes + kbits_np.nbytes if parity else 0))
+        return g0, bits_np, pk, counts_np, cbits_np, kbits_np
 
     def unpack_block(start, end, fetched):
         bs = end - start
@@ -363,15 +364,26 @@ def _compress_chunked(out, data, vdata, d, blocks, legacy, parity, stages,
                     lk[o: o + w] = lk_rows[j, :w]
         return lens, dists, conv, lk, redo
 
-    def finish(start, end, fetched):
+    def finish(start, end, fetched, parent):
         """Worker-pool tail: unpack + pre-DP length refine (parity /
-        overflow) + DP + post-DP distance fix + emit.  ``fetched is None``
-        = CPU-assist block: the whole search runs on the host matcher
+        overflow) + DP + post-DP distance fix + emit, spans under
+        ``parent`` (the pool carries no context).  ``fetched is None`` =
+        CPU-assist block: the whole search runs on the host matcher
         (exact, so parity-mode output is independent of which engine a
         block landed on)."""
         bs = end - start
+        with profiling.span("host.block", parent=parent,
+                            assist=int(fetched is None), n_positions=bs):
+            return finish_block(start, end, fetched)
+
+    def finish_block(start, end, fetched):
+        bs = end - start
         vstart, vend = start + d, end + d
         block_cut = _block_cut(start, legacy)
+        lo = vstart if legacy else max(vstart - HALO, 0)
+        base_r = vstart - lo
+        ctxb = np.frombuffer(vdata[lo:vend], np.uint8)
+        cut = (base_r - fmt.BLOCK_END_NO_MATCH) if block_cut else -1
         if fetched is None:
             lens = np.ones(bs, np.int32)
             dists = np.zeros(bs, np.int32)
@@ -379,13 +391,10 @@ def _compress_chunked(out, data, vdata, d, blocks, legacy, parity, stages,
             lk = np.zeros(bs, bool)
             redo = np.ones(bs, bool)
         else:
-            lens, dists, conv, lk, redo = unpack_block(start, end, fetched)
-        lo = vstart if legacy else max(vstart - HALO, 0)
-        base_r = vstart - lo
-        ctxb = np.frombuffer(vdata[lo:vend], np.uint8)
-        cut = (base_r - fmt.BLOCK_END_NO_MATCH) if block_cut else -1
-        if fetched is not None:
-            _deep_run_rule(ctxb, base_r, bs, lens, dists, conv, lk)
+            with profiling.span("host.unpack"):
+                lens, dists, conv, lk, redo = unpack_block(start, end,
+                                                           fetched)
+                _deep_run_rule(ctxb, base_r, bs, lens, dists, conv, lk)
         tail = min(fmt.BLOCK_END_NO_MATCH - 1, bs)
         lens[bs - tail:] = 1
         dists[bs - tail:] = 0
@@ -393,16 +402,17 @@ def _compress_chunked(out, data, vdata, d, blocks, legacy, parity, stages,
         lk[bs - tail:] = True
         redo[bs - tail:] = False
         mask = ~lk if parity else redo
+        n_refine = int(mask.sum())
         if fetched is not None:  # certificate miss rate: device blocks only
             with count_lock:
-                add("n_refine_positions", int(mask.sum()))
+                add("n_refine_positions", n_refine)
                 add("n_positions", bs)
-        wholesale = False
-        if mask.any():
-            if parity and mask.mean() > 0.5:
-                # high-miss regime: a wholesale exact search beats
-                # per-position refine and leaves every position exact
-                wholesale = True
+        # high-miss regime: a wholesale exact search beats per-position
+        # refine and leaves every position exact
+        wholesale = parity and n_refine > bs / 2
+        with profiling.span("host.refine", n_refine_positions=n_refine,
+                            wholesale=int(wholesale)):
+            if wholesale:
                 native.match_block_ex(
                     ctxb, base=base_r, bs=bs, level=9, lookback=base_r,
                     cut_pos=cut, lens=lens, dists=dists)
@@ -410,24 +420,28 @@ def _compress_chunked(out, data, vdata, d, blocks, legacy, parity, stages,
                 if fetched is not None:
                     with count_lock:
                         add("n_wholesale_blocks", 1)
-            else:
+            elif n_refine:
                 native.match_refine(
                     ctxb, base=base_r, bs=bs, lookback=base_r,
                     mask=mask, lens=lens, dists=dists, cut_pos=cut)
                 conv |= mask  # refined positions are fully exact
         lens_claim = lens.copy() if parity else None
-        native.estimate_costs(lens, dists)
+        with profiling.span("host.dp"):
+            native.estimate_costs(lens, dists)
         if parity and not wholesale and fetched is not None:
             # post-DP distance fix at the chosen match starts only
             need = native.chosen_mask(lens) & ~conv
-            if need.any():
-                native.match_refine_dist(
-                    ctxb, base=base_r, bs=bs, lookback=base_r,
-                    mask=need, targets=lens_claim,
-                    lens=lens_claim, dists=dists, cut_pos=cut)
-                with count_lock:
-                    add("n_dist_fix_positions", int(need.sum()))
-        payload = native.emit_block(data[start:end], lens, dists)
+            n_fix = int(need.sum())
+            with profiling.span("host.dist_fix", n_dist_fix_positions=n_fix):
+                if n_fix:
+                    native.match_refine_dist(
+                        ctxb, base=base_r, bs=bs, lookback=base_r,
+                        mask=need, targets=lens_claim,
+                        lens=lens_claim, dists=dists, cut_pos=cut)
+                    with count_lock:
+                        add("n_dist_fix_positions", n_fix)
+        with profiling.span("host.emit"):
+            payload = native.emit_block(data[start:end], lens, dists)
         if len(payload) < bs or legacy:
             return payload, False
         return data[start:end], True
@@ -455,7 +469,7 @@ def _compress_chunked(out, data, vdata, d, blocks, legacy, parity, stages,
             claim["front"] += 1
             return bi
 
-    def assist_loop():
+    def assist_loop(parent):
         while True:
             with fence:
                 if claim["back"] - 1 < claim["front"]:
@@ -463,43 +477,40 @@ def _compress_chunked(out, data, vdata, d, blocks, legacy, parity, stages,
                 claim["back"] -= 1
                 bi = claim["back"]
             start, end = blocks[bi]
-            jobs[bi] = _Done(finish(start, end, None))
+            jobs[bi] = _Done(finish(start, end, None, parent))
 
     # one worker per core for the finish tail PLUS one per assist loop (an
     # assist occupies its worker for a whole block); the native stages
     # release the GIL
     n_assist = min(n_assist, max(0, len(blocks) - 1))
     pool = host_par._pool(n_cores + n_assist)
-    assist_futures = [pool.submit(assist_loop) for _ in range(n_assist)]
+    root = profiling.current()
+    assist_futures = [pool.submit(assist_loop, root)
+                      for _ in range(n_assist)]
 
     def drain(limit):
-        t = time.perf_counter()
         while len(pending) > limit:
             bi, start, end, entries = pending.pop(0)
             fetched = collect_block(entries)
-            jobs[bi] = pool.submit(finish, start, end, fetched)
-        add("device_sync", time.perf_counter() - t)
+            jobs[bi] = pool.submit(finish, start, end, fetched, root)
 
     while True:
         bi = claim_front()
         if bi < 0:
             break
         start, end = blocks[bi]
-        t0 = time.perf_counter()
         pending.append((bi, start, end, dispatch_block(start, end)))
-        add("device_dispatch", time.perf_counter() - t0)
         add("n_device_blocks", 1)
         drain(WINDOW)
     drain(0)
-    for f in assist_futures:
-        f.result()
 
-    t0 = time.perf_counter()
-    for bi, (start, end) in enumerate(blocks):
-        payload, stored = jobs[bi].result()
-        out += fmt.build_block_header(len(payload), stored, legacy)
-        out += payload
-    add("host_refine_dp_emit", time.perf_counter() - t0)
+    with profiling.span("stream.join"):  # the assist's blocks, then order
+        for f in assist_futures:
+            f.result()
+        for bi, (start, end) in enumerate(blocks):
+            payload, stored = jobs[bi].result()
+            out += fmt.build_block_header(len(payload), stored, legacy)
+            out += payload
 
 
 def segment_group(varr: np.ndarray, vstart: int, vend: int, group,
@@ -527,7 +538,7 @@ def segment_group(varr: np.ndarray, vstart: int, vend: int, group,
     return bufs, sv, ev, cut, fin
 
 
-def _compress_sorted(out, data, vdata, d, blocks, legacy, parity, stages,
+def _compress_sorted(out, data, vdata, d, blocks, legacy, parity, counters,
                      dev, kernel="sort", max_candidates=64):
     """Segment-engine stream loop (the reference's
     ``_process_block_window`` over windows of WINDOW blocks): dispatch
@@ -541,23 +552,35 @@ def _compress_sorted(out, data, vdata, d, blocks, legacy, parity, stages,
     pool = host_par._pool(None)  # persistent: workers keep warm match tables
 
     def add(key, v):
-        stages[key] = stages.get(key, 0) + v
+        counters[key] = counters.get(key, 0) + v
 
-    def finish(start, end, lens, dists, conv):
+    def finish(start, end, lens, dists, conv, parent):
+        bs = end - start
+        with profiling.span("host.block", parent=parent, assist=0,
+                            n_positions=bs):
+            return finish_block(start, end, lens, dists, conv)
+
+    def finish_block(start, end, lens, dists, conv):
         bs = end - start
         vstart, vend = start + d, end + d
         block_cut = _block_cut(start, legacy)
         if parity:
             mask = ~conv
-            if mask.any():
-                lo = vstart if legacy else max(vstart - HALO, 0)
-                base_r = vstart - lo
-                cut = base_r - fmt.BLOCK_END_NO_MATCH if block_cut else -1
-                native.match_refine(
-                    varr[lo:vend], base=base_r, bs=bs, lookback=base_r,
-                    mask=mask, lens=lens, dists=dists, cut_pos=cut)
-        native.estimate_costs(lens, dists)
-        payload = native.emit_block(data[start:end], lens, dists)
+            n_refine = int(mask.sum())
+            with profiling.span("host.refine", n_refine_positions=n_refine,
+                                wholesale=0):
+                if n_refine:
+                    lo = vstart if legacy else max(vstart - HALO, 0)
+                    base_r = vstart - lo
+                    cut = (base_r - fmt.BLOCK_END_NO_MATCH if block_cut
+                           else -1)
+                    native.match_refine(
+                        varr[lo:vend], base=base_r, bs=bs, lookback=base_r,
+                        mask=mask, lens=lens, dists=dists, cut_pos=cut)
+        with profiling.span("host.dp"):
+            native.estimate_costs(lens, dists)
+        with profiling.span("host.emit"):
+            payload = native.emit_block(data[start:end], lens, dists)
         if len(payload) < bs or legacy:
             return payload, False
         return data[start:end], True
@@ -565,50 +588,47 @@ def _compress_sorted(out, data, vdata, d, blocks, legacy, parity, stages,
     def dispatch(start, end):
         """Queue every segment group of one block on the device."""
         vstart, vend = start + d, end + d
-        block_cut = _block_cut(start, legacy)
         seg_starts = list(range(vstart, vend, SEG))
-        entries = []
-        for g0 in range(0, len(seg_starts), SEG_BATCH):
-            group = seg_starts[g0: g0 + SEG_BATCH]
-            arrays = segment_group(varr, vstart, vend, group, legacy,
-                                   block_cut)
-            timing = None
-            if on_card:
-                timing = (torch.cuda.Event(enable_timing=True),
-                          torch.cuda.Event(enable_timing=True))
-                timing[0].record()
-            bufs, sv, ev, cut, fin = (to_dev(a) for a in arrays)
-            if kernel == "sort":
-                res = sm.match_segments(bufs, sv, ev, cut, fin)
-            else:
-                res = mf.match_segments(bufs, sv, ev, cut,
-                                        max_candidates=max_candidates)
-            # conv is consumed only by the parity refine
-            host = [to_host(a) for a in (res if parity else res[:2])]
-            done = None
-            if on_card:
-                timing[1].record()
-                done = torch.cuda.Event()
-                done.record()
-            add("n_dispatches", 1)
-            add("n_h2d_bytes", sum(a.nbytes for a in arrays))
-            add("n_d2h_bytes", sum(h.numel() * h.element_size()
-                                   for h in host))
-            entries.append((group, host, done, timing))
-        return entries
+        groups = [seg_starts[g0: g0 + SEG_BATCH]
+                  for g0 in range(0, len(seg_starts), SEG_BATCH)]
+        with profiling.span("stream.dispatch", n_groups=len(groups)):
+            return [dispatch_group(vstart, vend, _block_cut(start, legacy),
+                                   group) for group in groups]
+
+    def dispatch_group(vstart, vend, block_cut, group):
+        arrays = segment_group(varr, vstart, vend, group, legacy, block_cut)
+        bufs, sv, ev, cut, fin = (to_dev(a) for a in arrays)
+        if kernel == "sort":
+            res = sm.match_segments(bufs, sv, ev, cut, fin)
+        else:
+            res = mf.match_segments(bufs, sv, ev, cut,
+                                    max_candidates=max_candidates)
+        # conv is consumed only by the parity refine
+        host = [to_host(a) for a in (res if parity else res[:2])]
+        done = None
+        if on_card:
+            done = torch.cuda.Event()
+            done.record()
+        add("n_dispatches", 1)
+        add("n_h2d_bytes", sum(a.nbytes for a in arrays))
+        add("n_d2h_bytes", sum(h.numel() * h.element_size() for h in host))
+        return group, host, done
 
     def collect(start, end, entries):
         """Wait for one block's dispatches (calling thread) and assemble
         its position-order arrays."""
+        with profiling.span("stream.collect"):
+            return collect_block(start, end, entries)
+
+    def collect_block(start, end, entries):
         bs = end - start
         vstart, vend = start + d, end + d
         lens = np.empty(bs, np.int32)
         dists = np.empty(bs, np.int32)
         conv = np.ones(bs, bool)
-        for group, host, done, timing in entries:
+        for group, host, done in entries:
             if done is not None:
                 done.synchronize()
-                add("device_match_ms", timing[0].elapsed_time(timing[1]))
             arrays = [h.numpy() for h in host]
             for r, s0 in enumerate(group):
                 w = min(SEG, vend - s0)
@@ -627,22 +647,18 @@ def _compress_sorted(out, data, vdata, d, blocks, legacy, parity, stages,
             add("n_refine_positions", int(bs - conv.sum()))
         return lens, dists, conv
 
+    root = profiling.current()
     for w0 in range(0, len(blocks), WINDOW):
         window = blocks[w0: w0 + WINDOW]
-        t0 = time.perf_counter()
         queued = [dispatch(start, end) for start, end in window]
-        add("device_dispatch", time.perf_counter() - t0)
-        t0 = time.perf_counter()
         jobs = [pool.submit(finish, start, end,
-                            *collect(start, end, entries))
+                            *collect(start, end, entries), root)
                 for (start, end), entries in zip(window, queued)]
-        add("device_sync", time.perf_counter() - t0)
-        t0 = time.perf_counter()
-        for job in jobs:  # frame order
-            payload, stored = job.result()
-            out += fmt.build_block_header(len(payload), stored, legacy)
-            out += payload
-        add("host_refine_dp_emit", time.perf_counter() - t0)
+        with profiling.span("stream.join"):
+            for job in jobs:  # frame order
+                payload, stored = job.result()
+                out += fmt.build_block_header(len(payload), stored, legacy)
+                out += payload
 
 
 class _Done:
@@ -661,21 +677,26 @@ def _device_resident_block_step(halo, bufs, cand, vhi, lim, cut_gram, cut_pos,
     chunk search's raw claims (``cm.match_chunks_raw``), the last 11
     positions made literals, the policy-iteration DP (``ops.parse``), the
     sequence emit (``ops.emit``) of the chosen matches.  Returns (next
-    halo, payload uint8 [bs + bs//255 + 16], n_out, ok); ok False: the DP
-    hit its round cap."""
-    halo, (lens, dists, _conv, _lk) = cm.match_chunks_raw(
-        halo, bufs, cand, vhi, lim, cut_gram, cut_pos, n_chunks=n_chunks,
-        chunk=cm.CHUNK)
-    lens = lens.reshape(-1)[:bs]
-    dists = dists.reshape(-1)[:bs]
-    pos = torch.arange(bs, device=lens.device)
-    tail = pos >= bs - (fmt.BLOCK_END_NO_MATCH - 1)
-    lens = torch.where(tail, 1, lens)
-    dists = torch.where(tail, 0, dists)
-    choice, _cost, ok = dev_parse.estimate_costs_device(lens, dists, bs)
-    payload, n_out = dev_emit.emit_block_device(
-        blk, choice, torch.where(choice > 1, dists, 0))
-    return halo, payload, n_out, ok
+    halo, payload uint8 [bs + bs//255 + 16], n_out, ok, rounds); ok False:
+    the DP hit its round cap; rounds: the DP's round count (a device
+    scalar, like n_out and ok)."""
+    with profiling.span("resident.match"):
+        halo, (lens, dists, _conv, _lk) = cm.match_chunks_raw(
+            halo, bufs, cand, vhi, lim, cut_gram, cut_pos,
+            n_chunks=n_chunks, chunk=cm.CHUNK)
+    with profiling.span("resident.dp"):
+        lens = lens.reshape(-1)[:bs]
+        dists = dists.reshape(-1)[:bs]
+        pos = torch.arange(bs, device=lens.device)
+        tail = pos >= bs - (fmt.BLOCK_END_NO_MATCH - 1)
+        lens = torch.where(tail, 1, lens)
+        dists = torch.where(tail, 0, dists)
+        choice, _cost, ok, rounds = dev_parse.policy_iteration(lens, dists,
+                                                               bs)
+    with profiling.span("resident.emit"):
+        payload, n_out = dev_emit.emit_block_device(
+            blk, choice, torch.where(choice > 1, dists, 0))
+    return halo, payload, n_out, ok, rounds
 
 
 def compress_device_resident(data, block_size: int | None = None,
@@ -692,8 +713,8 @@ def compress_device_resident(data, block_size: int | None = None,
     must be a multiple of ``cm.CHUNK``.  A block whose DP hits its round
     cap is redone on the host (exact search, native DP and emit).
     ``report`` (a ``utils.profiling.RunReport``) receives the wall time,
-    the stages (device_total, fetch_assemble) and the counters n_h2d_bytes
-    and n_d2h_bytes."""
+    the self seconds of each span of the call by name (``stages``) and the
+    counters n_h2d_bytes and n_d2h_bytes."""
     dev = resolve_device(device)
     t_run = time.perf_counter()
     data = bytes(data)
@@ -703,78 +724,12 @@ def compress_device_resident(data, block_size: int | None = None,
     if block_size % CH != 0:
         raise ValueError(f"device-resident path needs block_size % {CH} == 0")
     n = len(data)
-    arr = np.frombuffer(data, np.uint8)
-    out = bytearray(fmt.build_frame_header(False))
-    stages: dict = {}
     blocks = _blocks(n, block_size)
-    to_dev, _ = _device_pair(dev.type == "cuda", dev)
-
-    def add(key, v):
-        stages[key] = stages.get(key, 0) + v
-
-    halo = cm.empty_halo(chunk=CH, device=dev)  # carried block to block
-    for start, end in blocks:
-        bs = end - start
-        n_chunks = -(-bs // CH)
-        t0 = time.perf_counter()
-        bufs = np.zeros((n_chunks, CH + cm.LOOK), np.uint8)
-        cand = np.zeros(n_chunks, np.int32)
-        lim = np.zeros(n_chunks, np.int32)
-        for j in range(n_chunks):
-            cs = start + j * CH
-            take = max(0, min(CH + cm.LOOK, n - cs))
-            bufs[j, :take] = arr[cs: cs + take]
-            cand[j] = max(0, min(CH, bs - j * CH))
-            lim[j] = bs - j * CH - fmt.BLOCK_END_LITERALS
-        block_cut = _block_cut(start, False)
-        if block_cut:
-            cut_gram = cm.pack_cut_gram(
-                data[start - fmt.BLOCK_END_NO_MATCH:
-                     start - fmt.BLOCK_END_NO_MATCH + 4])
-            cut_pos = CH - fmt.BLOCK_END_NO_MATCH
-        else:
-            cut_gram, cut_pos = 0, -1
-        add("n_h2d_bytes", bufs.nbytes + bs)
-        cand_d = to_dev(cand)  # candidate and claim validity end together
-        halo, payload, n_out, ok = _device_resident_block_step(
-            halo, to_dev(bufs), cand_d, cand_d, to_dev(lim), cut_gram,
-            cut_pos, to_dev(arr[start:end].copy()), n_chunks, bs)
-        add("device_total", time.perf_counter() - t0)
-        t0 = time.perf_counter()
-        m, good = torch.stack([n_out.to(torch.int32),
-                               ok.to(torch.int32)]).tolist()
-        if not good:
-            # the DP's round cap: the block is redone on the host (exact
-            # search, native DP and emit); the stream stays valid, only
-            # this block's bytes differ from the device path's
-            lo = max(start - HALO, 0)
-            ctx = arr[lo:end]
-            base = start - lo
-            lens = np.ones(bs, np.int32)
-            dists = np.zeros(bs, np.int32)
-            native.match_block_ex(
-                ctx, base=base, bs=bs, level=9, lookback=base,
-                cut_pos=base - fmt.BLOCK_END_NO_MATCH if block_cut else -1,
-                lens=lens, dists=dists)
-            native.estimate_costs(lens, dists)
-            pay = native.emit_block(data[start:end], lens, dists)
-            if len(pay) < bs:
-                out += fmt.build_block_header(len(pay), False, False)
-                out += pay
-            else:
-                out += fmt.build_block_header(bs, True, False)
-                out += data[start:end]
-        elif m < bs:
-            pay = payload[:m].cpu().numpy().tobytes()
-            add("n_d2h_bytes", m + 8)
-            out += fmt.build_block_header(m, False, False)
-            out += pay
-        else:  # stored block
-            add("n_d2h_bytes", 8)
-            out += fmt.build_block_header(bs, True, False)
-            out += data[start:end]
-        add("fetch_assemble", time.perf_counter() - t0)
-    out += fmt.build_end_mark(False)
+    counters: dict = {}
+    with profiling.request("encode",
+                           report.stages if report is not None else None,
+                           n_bytes=n, n_blocks=len(blocks)):
+        out = _resident_blocks(data, blocks, counters, dev)
     if report is not None:
         report.operation = "encode"
         report.engine = "device-resident"
@@ -782,11 +737,94 @@ def compress_device_resident(data, block_size: int | None = None,
         report.bytes_out = len(out)
         report.blocks = len(blocks)
         report.wall_s = time.perf_counter() - t_run
-        for k, v in stages.items():
-            if k.startswith("n_"):
-                report.counters[k] = report.counters.get(k, 0) + v
+        for k, v in counters.items():
+            report.counters[k] = report.counters.get(k, 0) + v
+    return out
+
+
+def _resident_blocks(data: bytes, blocks, counters: dict, dev) -> bytes:
+    """The frame of ``compress_device_resident``, block after block;
+    ``counters`` receives n_h2d_bytes and n_d2h_bytes."""
+    CH = cm.CHUNK
+    n = len(data)
+    arr = np.frombuffer(data, np.uint8)
+    out = bytearray(fmt.build_frame_header(False))
+    to_dev, _ = _device_pair(dev.type == "cuda", dev)
+
+    def add(key, v):
+        counters[key] = counters.get(key, 0) + v
+
+    with profiling.span("resident.match"):  # the first block's halo
+        halo = cm.empty_halo(chunk=CH, device=dev)  # carried block to block
+    for start, end in blocks:
+        bs = end - start
+        n_chunks = -(-bs // CH)
+        with profiling.span("resident.stage"):
+            bufs = np.zeros((n_chunks, CH + cm.LOOK), np.uint8)
+            cand = np.zeros(n_chunks, np.int32)
+            lim = np.zeros(n_chunks, np.int32)
+            for j in range(n_chunks):
+                cs = start + j * CH
+                take = max(0, min(CH + cm.LOOK, n - cs))
+                bufs[j, :take] = arr[cs: cs + take]
+                cand[j] = max(0, min(CH, bs - j * CH))
+                lim[j] = bs - j * CH - fmt.BLOCK_END_LITERALS
+            block_cut = _block_cut(start, False)
+            if block_cut:
+                cut_gram = cm.pack_cut_gram(
+                    data[start - fmt.BLOCK_END_NO_MATCH:
+                         start - fmt.BLOCK_END_NO_MATCH + 4])
+                cut_pos = CH - fmt.BLOCK_END_NO_MATCH
             else:
-                report.stages[k] = report.stages.get(k, 0.0) + v
+                cut_gram, cut_pos = 0, -1
+        add("n_h2d_bytes", bufs.nbytes + bs)
+        with profiling.span("resident.upload", n_h2d_bytes=bufs.nbytes + bs):
+            # candidate and claim validity end together
+            cand_d = to_dev(cand)
+            bufs_d, lim_d = to_dev(bufs), to_dev(lim)
+            blk_d = to_dev(arr[start:end].copy())
+        halo, payload, n_out, ok, rounds = _device_resident_block_step(
+            halo, bufs_d, cand_d, cand_d, lim_d, cut_gram, cut_pos, blk_d,
+            n_chunks, bs)
+        with profiling.span("resident.sync") as sync:
+            m, good, n_rounds = torch.stack(
+                [n_out.to(torch.int32), ok.to(torch.int32),
+                 rounds.to(torch.int32)]).tolist()
+            sync.count(n_dp_rounds=n_rounds)
+        if not good:
+            with profiling.span("resident.fallback"):
+                # the DP's round cap: the block is redone on the host (exact
+                # search, native DP and emit); the stream stays valid, only
+                # this block's bytes differ from the device path's
+                lo = max(start - HALO, 0)
+                ctx = arr[lo:end]
+                base = start - lo
+                lens = np.ones(bs, np.int32)
+                dists = np.zeros(bs, np.int32)
+                native.match_block_ex(
+                    ctx, base=base, bs=bs, level=9, lookback=base,
+                    cut_pos=base - fmt.BLOCK_END_NO_MATCH if block_cut
+                    else -1, lens=lens, dists=dists)
+                native.estimate_costs(lens, dists)
+                pay = native.emit_block(data[start:end], lens, dists)
+                if len(pay) < bs:
+                    out += fmt.build_block_header(len(pay), False, False)
+                    out += pay
+                else:
+                    out += fmt.build_block_header(bs, True, False)
+                    out += data[start:end]
+            continue
+        d2h = m + 8 if m < bs else 8
+        add("n_d2h_bytes", d2h)
+        with profiling.span("resident.fetch", n_d2h_bytes=d2h):
+            if m < bs:
+                pay = payload[:m].cpu().numpy().tobytes()
+                out += fmt.build_block_header(m, False, False)
+                out += pay
+            else:  # stored block
+                out += fmt.build_block_header(bs, True, False)
+                out += data[start:end]
+    out += fmt.build_end_mark(False)
     return bytes(out)
 
 

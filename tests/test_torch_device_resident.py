@@ -110,8 +110,10 @@ def test_report_equals_reference(streams):
     assert (rep.operation, rep.engine, rep.bytes_in, rep.bytes_out,
             rep.blocks) == ("encode", "device-resident", len(data),
                             len(got), N_BLOCKS)
-    assert set(rep.stages) == {"device_total", "fetch_assemble"}
-    assert rep.wall_s > 0 and rep.mbps > 0
+    assert set(rep.stages) == {
+        "encode", "resident.stage", "resident.upload", "resident.match",
+        "resident.dp", "resident.emit", "resident.sync", "resident.fetch"}
+    assert rep.wall_s > 0 and all(v >= 0 for v in rep.stages.values())
 
 
 def test_match_chunks_raw_equals_reference(jref):
@@ -170,8 +172,8 @@ def test_host_fallback_equals_reference(jref, monkeypatch):
     treal = pipeline._device_resident_block_step
 
     def fake(*a):
-        halo, payload, n_out, _ok = treal(*a)
-        return halo, payload, n_out, torch.tensor(False)
+        halo, payload, n_out, _ok, rounds = treal(*a)
+        return halo, payload, n_out, torch.tensor(False), rounds
 
     monkeypatch.setattr(pipeline, "_device_resident_block_step", fake)
     rep = RunReport(operation="encode", engine="")
@@ -180,6 +182,7 @@ def test_host_fallback_equals_reference(jref, monkeypatch):
     assert got == want
     assert native.decompress(got) == data
     assert "n_d2h_bytes" not in rep.counters  # no payload came back
+    assert "resident.fallback" in rep.stages
 
 
 def test_default_block_size_and_errors(small_chunks):
