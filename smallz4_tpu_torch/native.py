@@ -107,6 +107,8 @@ def _load():
             "tlz4_decompress": [u8p, i64, u8p, i64, u8p, i64],
             "tlz4_match_block_ex": [u8p, i64, i64, i64, c_int, i64, i64, i32p,
                                     i32p],
+            "tlz4_match_block_ex2": [u8p, i64, i64, i64, c_int, i64, i64, i64,
+                                     i32p, i32p],
             "tlz4_match_refine": [u8p, i64, i64, i64, i64, i64, u8p, i32p,
                                   i32p],
             "tlz4_match_refine2": [u8p, i64, i64, i64, i64, i64, u8p, i32p,
@@ -191,6 +193,19 @@ def match_block_ex(buf, base: int, bs: int, level: int, lookback: int,
     _check(_load().tlz4_match_block_ex(_ptr(b), len(b), base, bs, level,
                                        lookback, cut_pos, _ptr32(lens),
                                        _ptr32(dists)))
+
+
+def match_chunk(buf, base: int, bs: int, level: int, lookback: int,
+                cut_pos: int, block_end: int, lens: np.ndarray,
+                dists: np.ndarray) -> None:
+    """Match search of positions [base, base+bs) of a block that ends at
+    ``block_end`` (levels 7-9): the block's end rules, the chunk's own
+    lookback; bit-identical to those positions of the whole-block search
+    where no giant byte run reaches the chunk's start."""
+    b = _u8(buf)
+    _check(_load().tlz4_match_block_ex2(_ptr(b), len(b), base, bs, level,
+                                        lookback, cut_pos, block_end,
+                                        _ptr32(lens), _ptr32(dists)))
 
 
 def match_refine(buf, base: int, bs: int, lookback: int, mask: np.ndarray,

@@ -246,6 +246,11 @@ def _compress_chunked(out, data, vdata, d, blocks, legacy, parity, counters,
     def add(key, v):
         counters[key] = counters.get(key, 0) + v
 
+    def count_search(ranges):
+        with count_lock:
+            add("n_searches", 1)
+            add("n_search_ranges", ranges)
+
     to_dev, to_host = _device_pair(on_card, dev)
 
     def block_halo(start):
@@ -411,20 +416,21 @@ def _compress_chunked(out, data, vdata, d, blocks, legacy, parity, counters,
         # refine and leaves every position exact
         wholesale = parity and n_refine > bs / 2
         with profiling.span("host.refine", n_refine_positions=n_refine,
-                            wholesale=int(wholesale)):
+                            wholesale=int(wholesale), n_ranges=0) as sp:
             if wholesale:
-                native.match_block_ex(
-                    ctxb, base=base_r, bs=bs, level=9, lookback=base_r,
-                    cut_pos=cut, lens=lens, dists=dists)
+                ranges = host_par.search(ctxb, base_r, bs, base_r, cut, lens,
+                                         dists)
                 conv[:] = True
                 if fetched is not None:
                     with count_lock:
                         add("n_wholesale_blocks", 1)
             elif n_refine:
-                native.match_refine(
-                    ctxb, base=base_r, bs=bs, lookback=base_r,
-                    mask=mask, lens=lens, dists=dists, cut_pos=cut)
+                ranges = host_par.search(ctxb, base_r, bs, base_r, cut, lens,
+                                         dists, mask=mask)
                 conv |= mask  # refined positions are fully exact
+            if wholesale or n_refine:
+                sp.count(n_ranges=ranges)
+                count_search(ranges)
         lens_claim = lens.copy() if parity else None
         with profiling.span("host.dp"):
             native.estimate_costs(lens, dists)
@@ -432,12 +438,14 @@ def _compress_chunked(out, data, vdata, d, blocks, legacy, parity, counters,
             # post-DP distance fix at the chosen match starts only
             need = native.chosen_mask(lens) & ~conv
             n_fix = int(need.sum())
-            with profiling.span("host.dist_fix", n_dist_fix_positions=n_fix):
+            with profiling.span("host.dist_fix", n_dist_fix_positions=n_fix,
+                                n_ranges=0) as sp:
                 if n_fix:
-                    native.match_refine_dist(
-                        ctxb, base=base_r, bs=bs, lookback=base_r,
-                        mask=need, targets=lens_claim,
-                        lens=lens_claim, dists=dists, cut_pos=cut)
+                    ranges = host_par.search(
+                        ctxb, base_r, bs, base_r, cut, lens_claim, dists,
+                        mask=need, targets=lens_claim)
+                    sp.count(n_ranges=ranges)
+                    count_search(ranges)
                     with count_lock:
                         add("n_dist_fix_positions", n_fix)
         with profiling.span("host.emit"):
@@ -550,9 +558,11 @@ def _compress_sorted(out, data, vdata, d, blocks, legacy, parity, counters,
     on_card = dev.type == "cuda"
     to_dev, to_host = _device_pair(on_card, dev)
     pool = host_par._pool(None)  # persistent: workers keep warm match tables
+    count_lock = threading.Lock()  # finish() runs in the worker pool
 
     def add(key, v):
-        counters[key] = counters.get(key, 0) + v
+        with count_lock:
+            counters[key] = counters.get(key, 0) + v
 
     def finish(start, end, lens, dists, conv, parent):
         bs = end - start
@@ -568,15 +578,18 @@ def _compress_sorted(out, data, vdata, d, blocks, legacy, parity, counters,
             mask = ~conv
             n_refine = int(mask.sum())
             with profiling.span("host.refine", n_refine_positions=n_refine,
-                                wholesale=0):
+                                wholesale=0, n_ranges=0) as sp:
                 if n_refine:
                     lo = vstart if legacy else max(vstart - HALO, 0)
                     base_r = vstart - lo
                     cut = (base_r - fmt.BLOCK_END_NO_MATCH if block_cut
                            else -1)
-                    native.match_refine(
-                        varr[lo:vend], base=base_r, bs=bs, lookback=base_r,
-                        mask=mask, lens=lens, dists=dists, cut_pos=cut)
+                    ranges = host_par.search(varr[lo:vend], base_r, bs,
+                                             base_r, cut, lens, dists,
+                                             mask=mask)
+                    sp.count(n_ranges=ranges)
+                    add("n_searches", 1)
+                    add("n_search_ranges", ranges)
         with profiling.span("host.dp"):
             native.estimate_costs(lens, dists)
         with profiling.span("host.emit"):
