@@ -72,7 +72,7 @@ network and no arguments.  Phases:
      decode stage by stage (parse, padding and uploads, expansion, copy
      back; host clock);
   3e. device-resident encode (match_chunks_raw -> the policy-iteration DP
-     of csrc/parse.cu -> the tensor-op emit): compress_device_resident of
+     of csrc/parse.cu -> the emit of csrc/emit.cu): compress_device_resident of
      the fixture at 1 MiB and 4 MiB blocks, with the launch counters set to
      0 just before each, must decode back and equal the stream built with
      the DP's plain version on the card; a block may take the host fallback
@@ -88,8 +88,12 @@ network and no arguments.  Phases:
      tiles, a 1 MiB block cut after one round and the 4 MiB block after
      one and two), each converged choice equal to native.estimate_costs,
      one launch of the kernel a call (torch.profiler), timed on the 4 MiB
-     block with its entries a tile and the bytes its design moves; and
-     the emit's device time on that block.
+     block with its entries a tile and the bytes its design moves; the
+     emit kernel against its plain version (all output bytes, n_out) and
+     native.emit_block (the payload) on the DP's parse of that block, an
+     all-literal 4 MiB block and a 4 MiB block of one byte value, two
+     device launches a call (torch.profiler), timed beside the plain
+     version and the bound; and the block step by stage.
 
 Prints a {"kernels": [...]} JSON line (each kernel's launches on its main
 path, error, kernel / plain / library time and bound; the chain once for
@@ -165,13 +169,16 @@ KERNELS = [  # (counter, source, replaced TPU kernel, engine path)
     # XLA in the reference (its policy-iteration while loop), not Pallas
     ("parse", "smallz4_tpu_torch/csrc/parse.cu",
      "smallz4_tpu/ops/parse.py:153", "resident"),
+    # XLA in the reference (static rounds), not Pallas
+    ("emit", "smallz4_tpu_torch/csrc/emit.cu",
+     "smallz4_tpu/ops/emit.py:67", "resident"),
 ]
 CHUNK_KERNELS = ("sort_records", "merge_sorted", "probe", "compact", "chain",
                  "pack")
 SORT_KERNELS = ("sort_records", "scan", "chain", "run_lengths")
 WALK_KERNELS = ("gram_hash", "walk", "run_lengths")
 RESIDENT_KERNELS = ("sort_records", "merge_sorted", "probe", "compact",
-                    "chain", "parse")
+                    "chain", "parse", "emit")
 # integer operations of one walk round of an active lane (activity test,
 # two clipped byte gathers, the distance-1 branch, the update, the hop) and
 # of one extension word (two clipped word gathers, xor, test, add, clamp)
@@ -1387,16 +1394,13 @@ def parse_worst(torch, np, native, dev, mib_block0, big_block) -> dict:
     return worst
 
 
-def parse_cases(torch, np, native, parse, emit, dev, real: bytes,
-                mib_blocks, big_block) -> dict:
+def parse_cases(torch, np, native, parse, dev, mib_blocks,
+                big_block) -> dict:
     """Phase 3e, the kernel: parse_check on the DP inputs of every 1 MiB
     block (``mib_blocks``) and of the first 4 MiB block (``big_block``) of
     the encodes, and on the worst cases of parse_worst; check_kernels on
     the 4 MiB block (its record for the kernels line); the design's bytes
-    and entries; the emit's device time on that block's parse.  Returns
-    the record."""
-    from smallz4_tpu_torch.ops import pipeline
-
+    and entries.  Returns the record."""
     err = 0
     for k, b in enumerate(mib_blocks):
         err = max(err, parse_check(torch, np, native, parse,
@@ -1431,21 +1435,68 @@ def parse_cases(torch, np, native, parse, emit, dev, real: bytes,
         f"{PARSE_GLOBAL_BYTES} x {rounds}) B) = {design / 1e9:.4f} GB, "
         f"{design / res['device_ms'] / 1e6:.1f} GB/s achieved by device "
         f"time")
-    # the emit (tensor ops, no hand kernel): its device time on this block
-    blk = torch.from_numpy(np.frombuffer(real[:n], np.uint8).copy()).to(dev)
-    d = torch.where(choice > 1, dists, 0)
-    out, n_out = emit.emit_block_device(blk, choice, d)
-    want = native.emit_block(real[:n], choice.cpu().numpy(), d.cpu().numpy())
-    if out[:int(n_out)].cpu().numpy().tobytes() != want:
-        raise AssertionError("emit_block_device != native.emit_block")
-    e_ms = cuda_ms(torch, lambda: emit.emit_block_device(blk, choice, d), 3)
-    e_dev, e_launches = device_ms(
-        torch, lambda: emit.emit_block_device(blk, choice, d), 2)
-    log(f"[3e] emit_block_device, the first 4 MiB block: {int(n_out)} B "
-        f"equal to native.emit_block; {e_ms:.4f} ms events, {e_dev:.4f} ms "
-        f"device in {e_launches:g} launches a call (tensor ops); bound "
-        f"{bound(nbytes(blk, choice, d) + int(n_out), 0)[0] * 1e3:.2f} us "
-        f"(bytes)")
+    return res
+
+
+def emit_blocks(torch, np, native, parse, dev, real: bytes, lens, dists,
+                n: int) -> dict:
+    """The emit's three 4 MiB blocks, name -> (bytes, lens, dists on dev):
+    the device DP's parse of ``real``'s block (its claims ``lens``,
+    ``dists`` on dev, the first ``n`` positions the block), random bytes
+    all literals (one sequence of 4,194,304 literals), and one byte value
+    parsed by the native DP (matches of 65,535 from every position)."""
+    from smallz4_tpu_torch import format as fmt
+
+    choice = parse.estimate_costs_device(lens, dists, n)[0]
+    one = b"z" * fmt.MAX_BLOCK_SIZE
+    olens, odists = native_claims(np, native, one)
+    native.estimate_costs(olens, odists)
+    rand = np.random.default_rng(11).integers(
+        0, 256, fmt.MAX_BLOCK_SIZE, dtype=np.uint8).tobytes()
+    ones = torch.ones(len(rand), dtype=torch.int32, device=dev)
+    return {"emit": (real[:n], choice, torch.where(choice > 1, dists, 0)),
+            "emit literals": (rand, ones, torch.zeros_like(ones)),
+            "emit one byte": (one, torch.from_numpy(olens).to(dev),
+                              torch.from_numpy(odists).to(dev))}
+
+
+def emit_cases(torch, np, native, parse, emit, dev, real: bytes, big_block,
+               parse_ms: float) -> dict:
+    """Phase 3e, the emit: check_kernels on the kernel (csrc/emit.cu)
+    against its plain version (all output bytes and n_out) on emit_blocks
+    (the resident encode's claims of the first 4 MiB block), each payload
+    equal to native.emit_block, two device launches a call; the bound
+    counts the block, lens, dists and the payload.  Then the block step by
+    stage.  Returns the first block's record."""
+    from smallz4_tpu_torch.ops import pipeline
+
+    blocks = emit_blocks(torch, np, native, parse, dev, real,
+                         big_block["lens"], big_block["dists"],
+                         big_block["n"])
+    cases, paid = {}, {}
+    for name, (data, ln, ds) in blocks.items():
+        blk = torch.from_numpy(np.frombuffer(data, np.uint8).copy()).to(dev)
+        out, n_out = emit.emit_block_device(blk, ln, ds)
+        want = native.emit_block(data, ln.cpu().numpy(), ds.cpu().numpy())
+        if out[:int(n_out)].cpu().numpy().tobytes() != want:
+            raise AssertionError(f"{name}: emit_block_device != "
+                                 f"native.emit_block")
+        cases[name] = (lambda a=(blk, ln, ds): emit.emit_block_device(*a),
+                       lambda a=(blk, ln, ds): emit.emit_block_plain(*a),
+                       (blk, ln, ds), 0)
+        paid[name] = nbytes(blk, ln, ds) + int(n_out)
+    results = check_kernels(torch, cases, "3e", "4 MiB blocks",
+                            kernel_name="emit")
+    for name, res in results.items():
+        res["bound_ms"], res["bound_by"] = bound(paid[name], 0)
+        log(f"[3e] {name:13s} payload {paid[name] - nbytes(*cases[name][2])}"
+            f" B; bound {res['bound_ms'] * 1e3:.2f} us (bytes: block, lens, "
+            f"dists, payload), {res['bound_ms'] / res['device_ms']:.2%} of "
+            f"the device time")
+        if res["device_launches_per_call"] != 2:
+            raise AssertionError(f"{name}: {res['device_launches_per_call']}"
+                                 f" device launches a call, not 2")
+    e_ms = results["emit"]["ms"]
     # the block step by stage (CUDA events): the raw match, the DP, the emit
     from smallz4_tpu_torch.ops import chunkmatch as cm
 
@@ -1458,9 +1509,9 @@ def parse_cases(torch, np, native, parse, emit, dev, real: bytes,
         *args), 3)
     log(f"[3e] device-resident block step, the first 4 MiB block (CUDA "
         f"events): {s_ms:.4f} ms = match_chunks_raw {m_ms:.4f} + the DP "
-        f"{res['ms']:.4f} + the emit {e_ms:.4f} + the rest "
-        f"{s_ms - m_ms - res['ms'] - e_ms:.4f}")
-    return res
+        f"{parse_ms:.4f} + the emit {e_ms:.4f} + the rest "
+        f"{s_ms - m_ms - parse_ms - e_ms:.4f}")
+    return results["emit"]
 
 
 def main() -> int:
@@ -1802,8 +1853,11 @@ def main() -> int:
         torch, _cuda, native, pipeline, parse, real, fmt.MAX_BLOCK_SIZE,
         chunk_rate)
     results["parse", "resident"] = parse_cases(
-        torch, np, native, parse, emit, dev, real, mib_blocks, big_blocks[0])
-    for name in RESIDENT_KERNELS[:-1]:  # phase 2's measurements
+        torch, np, native, parse, dev, mib_blocks, big_blocks[0])
+    results["emit", "resident"] = emit_cases(
+        torch, np, native, parse, emit, dev, real, big_blocks[0],
+        results["parse", "resident"]["ms"])
+    for name in RESIDENT_KERNELS[:-2]:  # phase 2's measurements
         results[name, "resident"] = {k: v for k, v
                                      in results[name, "chunk"].items()
                                      if k != "sort_engine"}

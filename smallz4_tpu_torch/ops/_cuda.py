@@ -11,8 +11,8 @@ non-zero code raises here.
 
 ``LAUNCHES`` counts, per kernel wrapper, the calls that went to the card.
 ``tile_state`` keeps the tile counter and status words of the kernels whose
-tiles wait on earlier tiles (run lengths, block expansion), and the grid
-barrier and round flags of the parse.  Nothing is
+tiles wait on earlier tiles (run lengths, block expansion, the sequence
+emit), and the grid barrier and round flags of the parse.  Nothing is
 imported or built when this module is imported.
 """
 from __future__ import annotations
@@ -39,7 +39,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 LAUNCHES = {"sort_records": 0, "merge_sorted": 0, "probe": 0, "compact": 0,
             "pack": 0, "scan": 0, "scan_direct": 0, "chain": 0,
             "chain_wide": 0, "run_lengths": 0, "gram_hash": 0, "walk": 0,
-            "expand": 0, "parse": 0}
+            "expand": 0, "parse": 0, "emit": 0}
 EPOCH_MAX = (1 << 30) - 1  # epochs of the status words of tile_state
 
 _lock = threading.Lock()
@@ -111,6 +111,13 @@ _SIGNATURES = {
     # -> the most positions of s4_parse; N -> its scratch bytes (no launch)
     "s4_parse_max_n": [],
     "s4_parse_scratch_bytes": [_I],
+    # block, lens, dists, out, meta, scratch, state, N, epoch, stream
+    "s4_emit": [_P] * 7 + [_I, ctypes.c_uint, _P],
+    # -> the most positions of s4_emit; N -> its status and scratch words
+    # (no launch)
+    "s4_emit_max_n": [],
+    "s4_emit_status_words": [_I],
+    "s4_emit_scratch_words": [_I],
 }
 
 

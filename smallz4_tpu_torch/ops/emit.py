@@ -1,10 +1,13 @@
 """Sequence emit on the device: LZ4 block serialization as a prefix-sum pack.
 
-Port of ``smallz4_tpu/ops/emit.py`` ``emit_block_device``, in PyTorch tensor
-ops on either device (its round count is static, so it has no hand
-kernel).  It writes exactly ``native.emit_block``'s payload from the final
-parse (lens after the DP, dists), so a device-resident encode ships
-compressed bytes over the host link instead of claims:
+Port of ``smallz4_tpu/ops/emit.py`` ``emit_block_device``.  It writes
+exactly ``native.emit_block``'s payload from the final parse (lens after the
+DP, dists), so a device-resident encode ships compressed bytes over the host
+link instead of claims.  ``emit_block_device`` runs the hand-written CUDA
+kernel ``csrc/emit.cu`` (``s4_emit``: the orbit, the sequence layout and the
+bytes in two launches) for a CUDA tensor, and the plain PyTorch version
+``emit_block_plain``, which follows the reference step for step, for a CPU
+tensor:
 
   1. the emit walk's orbit (position 0, then +len at a chosen match, +1 at
      a literal), marked in log2(n) rounds of 2^k-hop jump tables;
@@ -23,6 +26,7 @@ from __future__ import annotations
 import torch
 
 from .. import format as fmt
+from . import _cuda
 
 
 def _ext_count(v: torch.Tensor) -> torch.Tensor:
@@ -61,19 +65,19 @@ def _scatter_drop(tgt: torch.Tensor, values: torch.Tensor, S: int):
     return out[:S]
 
 
-def emit_block_device(block: torch.Tensor, lens: torch.Tensor,
-                      dists: torch.Tensor):
-    """Serialize one block's parse: ``block`` uint8 [N] (the block, no
-    padding), ``lens``/``dists`` int32 [N] as the DP writes them back (1 =
-    literal, else the match length; the last BLOCK_END_LITERALS positions
-    literals).  Returns (out uint8 [N + N//255 + 16], n_out int32 scalar):
-    the payload bytes, equal to ``native.emit_block(block, lens, dists)``,
-    then zeros."""
+def _check(block: torch.Tensor, lens: torch.Tensor,
+           dists: torch.Tensor) -> None:
     if (block.dim() != 1 or block.dtype != torch.uint8 or block.numel() < 1
             or lens.shape != block.shape or dists.shape != block.shape):
         raise ValueError(f"block must be uint8 [N], N >= 1, and lens, dists "
                          f"[N]: got {block.dtype} {tuple(block.shape)}, "
                          f"{tuple(lens.shape)}, {tuple(dists.shape)}")
+
+
+def emit_block_plain(block: torch.Tensor, lens: torch.Tensor,
+                     dists: torch.Tensor):
+    """Plain PyTorch version of ``emit_block_device`` (any device)."""
+    _check(block, lens, dists)
     N = block.shape[0]
     dev = block.device
     idx = torch.arange(N, dtype=torch.int32, device=dev)
@@ -152,3 +156,38 @@ def emit_block_device(block: torch.Tensor, lens: torch.Tensor,
                       torch.where(kind == 1, l_byte, b_byte))
     out = torch.where(o < n_out, val, 0).to(torch.uint8)
     return out, n_out
+
+
+def emit_block_device(block: torch.Tensor, lens: torch.Tensor,
+                      dists: torch.Tensor):
+    """Serialize one block's parse: ``block`` uint8 [N] (the block, no
+    padding), ``lens``/``dists`` int32 [N] as the DP writes them back (1 =
+    literal, else the match length; the last BLOCK_END_LITERALS positions
+    literals; ``dists`` is read at the chosen matches only).  Returns (out
+    uint8 [N + N//255 + 16], n_out int32 scalar): the payload bytes, equal
+    to ``native.emit_block(block, lens, dists)``, then zeros.  A CUDA
+    tensor runs the kernel (two launches, no host sync), a CPU tensor the
+    plain version."""
+    if not _cuda.on_cuda(block):
+        return emit_block_plain(block, lens, dists)
+    _check(block, lens, dists)
+    block = block.contiguous()
+    lens = _cuda.aligned(lens.to(torch.int32).contiguous())
+    dists = dists.to(torch.int32).contiguous()
+    _cuda.check_inputs(block, lens, dists)
+    N, dev = block.shape[0], block.device
+    lib = _cuda.lib()
+    if N > lib.s4_emit_max_n():
+        raise ValueError(f"the CUDA emit takes at most {lib.s4_emit_max_n()} "
+                         f"positions, got {N} (the plain version on the CPU "
+                         f"takes it)")
+    out = torch.empty(N + N // 255 + 16, dtype=torch.uint8, device=dev)
+    meta = torch.empty(2, dtype=torch.int32, device=dev)  # n_out, sequences
+    scratch = torch.empty(lib.s4_emit_scratch_words(N), dtype=torch.int32,
+                          device=dev)
+    state, epoch = _cuda.tile_state("emit", dev,
+                                    lib.s4_emit_status_words(N))
+    _cuda.launch("emit", "s4_emit", dev, block.data_ptr(), lens.data_ptr(),
+                 dists.data_ptr(), out.data_ptr(), meta.data_ptr(),
+                 scratch.data_ptr(), state.data_ptr(), N, epoch)
+    return out, meta[0]

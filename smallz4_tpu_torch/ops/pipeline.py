@@ -725,8 +725,8 @@ def _device_resident_block_step(halo, bufs, cand, vhi, lim, cut_gram, cut_pos,
         choice, _cost, ok, rounds = dev_parse.policy_iteration(lens, dists,
                                                                bs)
     with profiling.span("resident.emit"):
-        payload, n_out = dev_emit.emit_block_device(
-            blk, choice, torch.where(choice > 1, dists, 0))
+        # the emit reads dists at the chosen matches only
+        payload, n_out = dev_emit.emit_block_device(blk, choice, dists)
     return halo, payload, n_out, ok, rounds
 
 

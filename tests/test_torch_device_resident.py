@@ -12,7 +12,8 @@ report's byte counters equal the reference's.  ``match_chunks_raw``'s four
 claim planes and its halo must equal the reference's; a DP that hits its
 round cap must redo the block on the host as the reference does, to the
 same bytes.  A test marked ``cuda`` runs the encode on the card against
-the CPU.
+the CPU, and the real fixture's stream with the emit kernel against the
+same encode with the plain emit forced.
 """
 import numpy as np
 import pytest
@@ -27,6 +28,8 @@ from smallz4_tpu_torch.utils.profiling import RunReport
 C = 1024
 BLOCK = 2 * C
 N_BLOCKS = 34  # blocks 33 and 34 start at 67,584 and 69,632
+# the chunk engine's own sizes (the small_chunks fixture changes them)
+DEFAULT_CHUNKS = (tcm.CHUNK, tcm.GROUP, tcm.HEAD_CAP)
 
 
 def _mixed(n, seed=9):
@@ -215,8 +218,37 @@ def test_device_resident_cuda_equals_cpu(small_chunks):
                                             device="cuda")
     assert got == want
     # a block: the sort of its 2 chunks, one merge, probe, compaction,
-    # chain, and the parse
+    # chain, the parse and the emit
     assert _cuda.LAUNCHES == {k: 0 for k in _cuda.LAUNCHES} | {
         "sort_records": N_BLOCKS + 1, "merge_sorted": N_BLOCKS,
         "probe": N_BLOCKS, "compact": N_BLOCKS, "chain": N_BLOCKS,
-        "parse": N_BLOCKS}
+        "parse": N_BLOCKS, "emit": N_BLOCKS}
+
+
+@pytest.mark.cuda
+def test_resident_emit_kernel_equals_plain_emit(monkeypatch):
+    """The real fixture's resident stream at the default chunk sizes and
+    4 MiB blocks: the emit kernel's stream equals the stream with the plain
+    emit forced on the card, byte for byte."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import lzma
+    import pathlib
+
+    from smallz4_tpu_torch.ops import _cuda, emit
+
+    root = pathlib.Path(__file__).resolve().parent.parent
+    data = lzma.decompress((root / "benchdata" / "realcorpus.bin.xz")
+                           .read_bytes())
+    for name, value in zip(("CHUNK", "GROUP", "HEAD_CAP"), DEFAULT_CHUNKS):
+        monkeypatch.setattr(tcm, name, value)
+    bs = fmt.MAX_BLOCK_SIZE
+    _cuda.reset_counts()
+    got = pipeline.compress_device_resident(data, block_size=bs,
+                                            device="cuda")
+    assert _cuda.LAUNCHES["emit"] == -(-len(data) // bs)
+    monkeypatch.setattr(emit, "emit_block_device", emit.emit_block_plain)
+    want = pipeline.compress_device_resident(data, block_size=bs,
+                                             device="cuda")
+    assert got == want
+    assert native.decompress(got) == data
