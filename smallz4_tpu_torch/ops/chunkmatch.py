@@ -44,15 +44,6 @@ if VERIFY_WORDS not in (5, 7):
                      f"got {VERIFY_WORDS}")
 LOOK = 4 * VERIFY_WORDS  # lookahead bytes per chunk buffer
 
-#: probe-LCP strategy of the reference.  Both settings give bit-identical
-#: values on key-sorted records; the CUDA probe composes its LCPs from an
-#: adjacent-LCP min-table as the reference's default does, the plain version
-#: compares the five words directly.
-PROBE_LCP = _os.environ.get("SMALLZ4_TPU_PROBE_LCP", "composed")
-if PROBE_LCP not in ("composed", "direct"):
-    raise ValueError(f"SMALLZ4_TPU_PROBE_LCP must be 'composed' or 'direct', "
-                     f"got {PROBE_LCP!r}")
-
 NEAR_PROBES = tuple(range(1, 9))
 EDGE = NEAR_PROBES[-1]   # contiguous-window edge (the certificate anchor)
 MAX_FAR_PROBE = 1024     # bounds the probe kernel's shared-memory halo

@@ -6,9 +6,11 @@ paths: the chunk engine (``_compress_chunked``: one
 sort and walk engines (``_compress_sorted``, the reference's
 ``_process_block_window``: one ``ops.sortmatch.match_segments`` or
 ``ops.match_finder.match_segments`` call per dispatch of SEG_BATCH
-segments).  The device runs the match search; the host runtime
-(``smallz4_tpu_torch.native``) refines uncertified positions, runs the
-optimal-parse DP and emits, in a worker pool.  With
+segments).  Each engine gives the one stream loop (``_stream``) three
+steps, dispatch, collect and unpack; the loop schedules the blocks and
+finishes each in a worker pool with the one host block tail
+(``_host_tail``: refine of uncertified positions, optimal-parse DP and
+emit on the host runtime, ``smallz4_tpu_torch.native``).  With
 ``parity=True`` the stream is bit-identical to ``native.compress(data, 9)``
 and ``smallz4 -9``.
 
@@ -25,6 +27,7 @@ and only the compressed bytes come back.
 """
 from __future__ import annotations
 
+import concurrent.futures as cf
 import os
 import threading
 import time
@@ -205,7 +208,7 @@ def compress(data, level: int = 9, legacy: bool = False, dictionary=None,
     if dictionary and not legacy:
         dict_tail = bytes(dictionary)[-fmt.MAX_DISTANCE:]
     out = bytearray(fmt.build_frame_header(legacy))
-    counters: dict = {}
+    counters = _Counters()
     blocks = _blocks(len(data), block_size)
     args = (out, data, dict_tail + data, len(dict_tail), blocks, legacy,
             parity, counters, dev)
@@ -222,40 +225,247 @@ def compress(data, level: int = 9, legacy: bool = False, dictionary=None,
         return bytes(out)
 
 
+class _Counters(dict):
+    """A call's ``n_*`` counters; ``add`` may run on any thread."""
+
+    def __init__(self):
+        super().__init__()
+        self._lock = threading.Lock()
+
+    def add(self, **kv):
+        with self._lock:
+            for k, v in kv.items():
+                self[k] = self.get(k, 0) + v
+
+
+def _frame_block(out, data, start, end, payload, legacy):
+    """Appends the block data[start:end] to the frame ``out``, header
+    first: its ``payload`` (compressed bytes, or None) when that is
+    shorter than the block or the frame is legacy, which stores nothing;
+    otherwise the block's own bytes, stored."""
+    stored = not legacy and (payload is None or len(payload) >= end - start)
+    body = data[start:end] if stored else payload
+    out += fmt.build_block_header(len(body), stored, legacy)
+    out += body
+
+
+def _chunk_rows(arr, start, bs, first, rows, legacy):
+    """Inputs of one chunk search over the chunks [first, first + rows) of
+    the block [start, start + bs) of ``arr``: (bufs uint8 [rows, CHUNK +
+    LOOK], the chunk and its read-ahead; cand int32 [rows], the positions
+    to search, where claim validity ends too; lim int32 [rows], the limit
+    of a claim's end; cut_gram, cut_pos, the block's boundary cut, bound to
+    its chunk 0), numpy arrays and ints."""
+    CH = cm.CHUNK
+    n = len(arr)
+    bufs = np.zeros((rows, CH + cm.LOOK), np.uint8)
+    cand = np.zeros(rows, np.int32)
+    lim = np.zeros(rows, np.int32)
+    for j in range(rows):
+        o = (first + j) * CH
+        take = max(0, min(CH + cm.LOOK, n - start - o))
+        bufs[j, :take] = arr[start + o: start + o + take]
+        cand[j] = max(0, min(CH, bs - o))
+        lim[j] = bs - o - fmt.BLOCK_END_LITERALS
+    if first == 0 and _block_cut(start, legacy):
+        g = start - fmt.BLOCK_END_NO_MATCH
+        return (bufs, cand, lim, cm.pack_cut_gram(arr[g: g + 4].tobytes()),
+                CH - fmt.BLOCK_END_NO_MATCH)
+    return bufs, cand, lim, 0, -1
+
+
+def _context(varr, start, end, d, legacy):
+    """(ctx, base): the host search's view of the block [start, end) of a
+    frame whose virtual stream ``varr`` starts with ``d`` dictionary
+    bytes, the block after its window of history (none in a legacy
+    frame), and the block's offset in it."""
+    vstart = start + d
+    lo = vstart if legacy else max(vstart - HALO, 0)
+    return varr[lo: end + d], vstart - lo
+
+
+def _host_tail(data, varr, d, start, end, legacy, parity, claims, counters):
+    """One block's host tail; returns its compressed payload.  ``claims``:
+    the device search's (lens, dists, conv, lk, redo), used in place, or
+    None for a whole host search.  The last 11 positions become literals;
+    the refine searches the positions whose length is uncertified (~lk) in
+    parity mode and the chunks the device gave up on (redo) in fast mode,
+    or, where that is more than half the block in parity mode, the whole
+    block; then the DP, in parity mode the distance fix at the chosen
+    matches the device did not certify, and the emit.  Every search is the
+    split ``host_par.search``.  Device blocks count ``n_positions``,
+    ``n_refine_positions`` and ``n_wholesale_blocks``."""
+    bs = end - start
+    ctx, base = _context(varr, start, end, d, legacy)
+    cut = base - fmt.BLOCK_END_NO_MATCH if _block_cut(start, legacy) else -1
+    device = claims is not None
+    if device:
+        lens, dists, conv, lk, redo = claims
+    else:
+        lens = np.ones(bs, np.int32)
+        dists = np.zeros(bs, np.int32)
+        conv = np.zeros(bs, bool)
+        lk = np.zeros(bs, bool)
+        redo = np.ones(bs, bool)
+    tail = min(fmt.BLOCK_END_NO_MATCH - 1, bs)
+    lens[bs - tail:] = 1
+    dists[bs - tail:] = 0
+    conv[bs - tail:] = True
+    lk[bs - tail:] = True
+    redo[bs - tail:] = False
+    mask = ~lk if parity else redo
+    n_refine = int(mask.sum())
+    if device:  # certificate miss rate: device blocks only
+        counters.add(n_refine_positions=n_refine, n_positions=bs)
+    # high-miss regime: a wholesale exact search beats per-position
+    # refine and leaves every position exact
+    wholesale = parity and n_refine > bs / 2
+    with profiling.span("host.refine", n_refine_positions=n_refine,
+                        wholesale=int(wholesale), n_ranges=0) as sp:
+        if wholesale or n_refine:
+            ranges = host_par.search(ctx, base, bs, base, cut, lens, dists,
+                                     mask=None if wholesale else mask)
+            conv |= mask  # refined positions are fully exact
+            sp.count(n_ranges=ranges)
+            counters.add(n_searches=1, n_search_ranges=ranges)
+            if wholesale and device:
+                counters.add(n_wholesale_blocks=1)
+    fix = parity and not wholesale and device
+    lens_claim = lens.copy() if fix else None
+    with profiling.span("host.dp"):
+        native.estimate_costs(lens, dists)
+    if fix:
+        # post-DP distance fix at the chosen match starts only
+        need = native.chosen_mask(lens) & ~conv
+        n_fix = int(need.sum())
+        with profiling.span("host.dist_fix", n_dist_fix_positions=n_fix,
+                            n_ranges=0) as sp:
+            if n_fix:
+                ranges = host_par.search(ctx, base, bs, base, cut,
+                                         lens_claim, dists, mask=need,
+                                         targets=lens_claim)
+                sp.count(n_ranges=ranges)
+                counters.add(n_searches=1, n_search_ranges=ranges,
+                             n_dist_fix_positions=n_fix)
+    with profiling.span("host.emit"):
+        return native.emit_block(data[start:end], lens, dists)
+
+
+def _stream(out, data, varr, d, blocks, legacy, parity, counters, dispatch,
+            collect, unpack):
+    """The stream loop of every search engine.  The device claims blocks
+    from the front, at most WINDOW in flight: ``dispatch(bi, start, end)``
+    queues a block's searches (calling thread, span ``stream.dispatch``,
+    ``n_groups`` the entries it returns), ``collect(start, end, entries)``
+    copies their results to host memory (calling thread,
+    ``stream.collect``), and ``unpack(start, end, fetched)`` makes the
+    claims for ``_host_tail`` (pool, ``host.unpack``).  In parity mode a
+    block's bytes do not depend on its engine, so assist loops (one a core
+    or $SMALLZ4_TPU_CPU_ASSIST; none in fast mode by default) take whole
+    blocks from the BACK onto the host search.  The join writes the blocks
+    in frame order.  ``host.block`` (``assist`` 1 on the host search) and
+    ``stream.dispatch`` carry the block's index in the frame, ``block``,
+    which joins its spans across threads."""
+    pending = []  # (bi, start, end, entries)
+    jobs = {}     # bi -> future of the payload
+
+    def finish(bi, start, end, fetched, parent):
+        """A block's pool work; spans under ``parent`` (the pool carries
+        no context).  ``fetched is None``: an assist block."""
+        with profiling.span("host.block", parent=parent,
+                            assist=int(fetched is None),
+                            n_positions=end - start, block=bi):
+            claims = None
+            if fetched is not None:
+                with profiling.span("host.unpack"):
+                    claims = unpack(start, end, fetched)
+            return _host_tail(data, varr, d, start, end, legacy, parity,
+                              claims, counters)
+
+    n_cores = host_par._cores()
+    assist_default = str(n_cores) if parity else "0"
+    n_assist = max(0, int(os.environ.get("SMALLZ4_TPU_CPU_ASSIST",
+                                         assist_default)))
+    fence = threading.Lock()
+    claim = {"front": 0, "back": len(blocks)}
+
+    def claim_front():
+        with fence:
+            if claim["front"] >= claim["back"]:
+                return -1
+            bi = claim["front"]
+            claim["front"] += 1
+            return bi
+
+    def assist_loop(parent):
+        while True:
+            with fence:
+                if claim["back"] - 1 < claim["front"]:
+                    return
+                claim["back"] -= 1
+                bi = claim["back"]
+            start, end = blocks[bi]
+            jobs[bi] = done = cf.Future()
+            done.set_result(finish(bi, start, end, None, parent))
+
+    # one worker per core for the finish tail PLUS one per assist loop (an
+    # assist occupies its worker for a whole block); the native stages
+    # release the GIL; the workers keep their match tables warm
+    n_assist = min(n_assist, max(0, len(blocks) - 1))
+    pool = host_par._pool(n_cores + n_assist)
+    root = profiling.current()
+    assist_futures = [pool.submit(assist_loop, root)
+                      for _ in range(n_assist)]
+
+    def drain(limit):
+        while len(pending) > limit:
+            bi, start, end, entries = pending.pop(0)
+            with profiling.span("stream.collect"):
+                fetched = collect(start, end, entries)
+            jobs[bi] = pool.submit(finish, bi, start, end, fetched, root)
+
+    while True:
+        bi = claim_front()
+        if bi < 0:
+            break
+        start, end = blocks[bi]
+        with profiling.span("stream.dispatch", block=bi) as sp:
+            entries = dispatch(bi, start, end)
+            sp.count(n_groups=len(entries))
+        pending.append((bi, start, end, entries))
+        counters.add(n_device_blocks=1)
+        drain(WINDOW)
+    drain(0)
+
+    with profiling.span("stream.join"):  # the assist's blocks, then order
+        for f in assist_futures:
+            f.result()
+        for bi, (start, end) in enumerate(blocks):
+            _frame_block(out, data, start, end, jobs[bi].result(), legacy)
+
+
 def _compress_chunked(out, data, vdata, d, blocks, legacy, parity, counters,
                       dev):
-    """Chunk-engine stream loop: one ``match_chunks`` call per GROUP
-    chunks; within a block each call carries its last chunk's sorted
-    records to the next as the halo.  Each block's leading halo is sorted
-    from its raw history bytes, so blocks are independent.  Packed results
-    come back to pinned host memory; refine (parity mode) + DP + emit run
-    in the worker pool.
+    """The chunk engine's steps of ``_stream``: one ``match_chunks`` call
+    per GROUP chunks; within a block each call carries its last chunk's
+    sorted records to the next as the halo.  Each block's leading halo is
+    sorted from its raw history bytes, so blocks are independent.  Packed
+    results come back to pinned host memory and are unpacked in the pool.
 
     Contract (checked by the caller): block_size % (GROUP*CHUNK) == 0, so
     every block starts at a call boundary and the boundary cut binds to
     that call's chunk 0.
 
-    Spans: ``stream.dispatch`` a device-path block and, inside it,
-    ``stream.group`` a call (``carried`` 1 when its halo is the previous
-    call's records); both, and ``host.block``, carry the block's index
-    ``block`` in the frame, which joins a block's spans across threads."""
+    Spans: ``stream.group`` a call, inside ``stream.dispatch`` (``block``,
+    ``carried`` 1 when its halo is the previous call's records)."""
     CH, G, CAP = cm.CHUNK, cm.GROUP, cm.HEAD_CAP
     # speculative packed prefix copied with every group; a group whose
     # largest head count exceeds it pays one more synchronous copy
     PREFETCH = min(CAP, max(256, CH // 8))
     n = len(data)
     arr = np.frombuffer(data, np.uint8)
+    varr = np.frombuffer(vdata, np.uint8)
     on_card = dev.type == "cuda"
-    count_lock = threading.Lock()  # finish() runs in the worker pool
-
-    def add(key, v):
-        counters[key] = counters.get(key, 0) + v
-
-    def count_search(ranges):
-        with count_lock:
-            add("n_searches", 1)
-            add("n_search_ranges", ranges)
-
     to_dev, to_host = _device_pair(on_card, dev)
 
     def no_history(start):
@@ -271,7 +481,7 @@ def _compress_chunked(out, data, vdata, d, blocks, legacy, parity, counters,
         hb = np.zeros(CH + cm.LOOK, np.uint8)
         if start == 0:  # dictionary tail, right-aligned (virtual prefix)
             lo_valid = CH - d
-            hb[lo_valid:CH] = np.frombuffer(vdata[:d], np.uint8)
+            hb[lo_valid:CH] = varr[:d]
         else:           # preceding 64 KiB of the stream
             lo_valid = 0
             hb[:CH] = arr[start - CH: start]
@@ -280,47 +490,27 @@ def _compress_chunked(out, data, vdata, d, blocks, legacy, parity, counters,
             hb[CH: CH + take] = arr[start: start + take]
         return cm.sort_chunk(to_dev(hb), lo_valid, CH, chunk=CH)
 
-    def dispatch_block(bi, start, end):
+    def dispatch(bi, start, end):
         """Queue every group of one block on the device."""
         bs = end - start
         n_groups = -(-bs // (G * CH))
-        add("n_device_groups", n_groups)
-        add("n_carried_halos", n_groups - 1)
-        add("n_empty_halo_blocks", int(no_history(start)))
-        with profiling.span("stream.dispatch", n_groups=n_groups, block=bi):
-            return dispatch_groups(bi, start, bs, n_groups)
-
-    def dispatch_groups(bi, start, bs, n_groups):
-        block_cut = _block_cut(start, legacy)
+        counters.add(n_device_groups=n_groups, n_carried_halos=n_groups - 1,
+                     n_empty_halo_blocks=int(no_history(start)))
         halo = block_halo(start)
         entries = []
         for gi in range(n_groups):
             g0 = gi * G
             with profiling.span("stream.group", block=bi, carried=int(gi > 0),
                                 n_positions=min(G * CH, bs - g0 * CH)):
-                bufs = np.zeros((G, CH + cm.LOOK), np.uint8)
-                cand = np.zeros(G, np.int32)
-                lim = np.zeros(G, np.int32)
-                for j in range(G):
-                    cs = start + (g0 + j) * CH
-                    take = max(0, min(CH + cm.LOOK, n - cs))
-                    if take:
-                        bufs[j, :take] = arr[cs: cs + take]
-                    cand[j] = max(0, min(CH, bs - (g0 + j) * CH))
-                    lim[j] = bs - (g0 + j) * CH - fmt.BLOCK_END_LITERALS
-                if gi == 0 and block_cut:
-                    cut_gram = cm.pack_cut_gram(
-                        data[start - fmt.BLOCK_END_NO_MATCH:
-                             start - fmt.BLOCK_END_NO_MATCH + 4])
-                    cut_pos = CH - fmt.BLOCK_END_NO_MATCH
-                else:
-                    cut_gram, cut_pos = 0, -1
+                bufs, cand, lim, cut_gram, cut_pos = _chunk_rows(
+                    arr, start, bs, g0, G, legacy)
                 cand_d = to_dev(cand)
                 # claim validity ends where candidate validity does
                 halo, ys = cm.match_chunks(
                     halo, to_dev(bufs), cand_d, cand_d, to_dev(lim),
                     cut_gram, cut_pos, n_chunks=G, head_cap=CAP, chunk=CH)
-                add("n_h2d_bytes", bufs.nbytes + cand.nbytes + lim.nbytes)
+                counters.add(n_h2d_bytes=bufs.nbytes + cand.nbytes
+                             + lim.nbytes)
                 bits, packed, counts, cbits, kbits = ys
                 # start the host copies now; certificate bits are consumed
                 # only by the parity refine
@@ -334,11 +524,8 @@ def _compress_chunked(out, data, vdata, d, blocks, legacy, parity, counters,
                 entries.append((g0, packed, host, done))
         return entries
 
-    def collect_block(entries):
-        """Wait for one block's results (calling thread); unpacking
-        happens in the pool."""
-        with profiling.span("stream.collect"):
-            return [collect_group(*e) for e in entries]
+    def collect(start, end, entries):
+        return [collect_group(*e) for e in entries]
 
     def collect_group(g0, packed, host, done):
         if done is not None:
@@ -350,11 +537,11 @@ def _compress_chunked(out, data, vdata, d, blocks, legacy, parity, counters,
             pk = packed[:, : min(maxp, CAP)].cpu().numpy()
         cbits_np, kbits_np = ((host[3].numpy().copy(), host[4].numpy().copy())
                               if parity else (None, None))
-        add("n_d2h_bytes", bits_np.nbytes + pk.nbytes + counts_np.nbytes
-            + (cbits_np.nbytes + kbits_np.nbytes if parity else 0))
+        counters.add(n_d2h_bytes=bits_np.nbytes + pk.nbytes + counts_np.nbytes
+                     + (cbits_np.nbytes + kbits_np.nbytes if parity else 0))
         return g0, bits_np, pk, counts_np, cbits_np, kbits_np
 
-    def unpack_block(start, end, fetched):
+    def unpack(start, end, fetched):
         bs = end - start
         lens = np.ones(bs, np.int32)
         dists = np.zeros(bs, np.int32)
@@ -384,159 +571,12 @@ def _compress_chunked(out, data, vdata, d, blocks, legacy, parity, counters,
                     conv[o: o + w] = cv_rows[j, :w]
                 if lk_rows is not None:
                     lk[o: o + w] = lk_rows[j, :w]
+        _deep_run_rule(*_context(varr, start, end, d, legacy), bs, lens,
+                       dists, conv, lk)
         return lens, dists, conv, lk, redo
 
-    def finish(bi, start, end, fetched, parent):
-        """Worker-pool tail: unpack + pre-DP length refine (parity /
-        overflow) + DP + post-DP distance fix + emit, spans under
-        ``parent`` (the pool carries no context).  ``fetched is None`` =
-        CPU-assist block: the whole search runs on the host matcher
-        (exact, so parity-mode output is independent of which engine a
-        block landed on)."""
-        bs = end - start
-        with profiling.span("host.block", parent=parent,
-                            assist=int(fetched is None), n_positions=bs,
-                            block=bi):
-            return finish_block(start, end, fetched)
-
-    def finish_block(start, end, fetched):
-        bs = end - start
-        vstart, vend = start + d, end + d
-        block_cut = _block_cut(start, legacy)
-        lo = vstart if legacy else max(vstart - HALO, 0)
-        base_r = vstart - lo
-        ctxb = np.frombuffer(vdata[lo:vend], np.uint8)
-        cut = (base_r - fmt.BLOCK_END_NO_MATCH) if block_cut else -1
-        if fetched is None:
-            lens = np.ones(bs, np.int32)
-            dists = np.zeros(bs, np.int32)
-            conv = np.zeros(bs, bool)
-            lk = np.zeros(bs, bool)
-            redo = np.ones(bs, bool)
-        else:
-            with profiling.span("host.unpack"):
-                lens, dists, conv, lk, redo = unpack_block(start, end,
-                                                           fetched)
-                _deep_run_rule(ctxb, base_r, bs, lens, dists, conv, lk)
-        tail = min(fmt.BLOCK_END_NO_MATCH - 1, bs)
-        lens[bs - tail:] = 1
-        dists[bs - tail:] = 0
-        conv[bs - tail:] = True
-        lk[bs - tail:] = True
-        redo[bs - tail:] = False
-        mask = ~lk if parity else redo
-        n_refine = int(mask.sum())
-        if fetched is not None:  # certificate miss rate: device blocks only
-            with count_lock:
-                add("n_refine_positions", n_refine)
-                add("n_positions", bs)
-        # high-miss regime: a wholesale exact search beats per-position
-        # refine and leaves every position exact
-        wholesale = parity and n_refine > bs / 2
-        with profiling.span("host.refine", n_refine_positions=n_refine,
-                            wholesale=int(wholesale), n_ranges=0) as sp:
-            if wholesale:
-                ranges = host_par.search(ctxb, base_r, bs, base_r, cut, lens,
-                                         dists)
-                conv[:] = True
-                if fetched is not None:
-                    with count_lock:
-                        add("n_wholesale_blocks", 1)
-            elif n_refine:
-                ranges = host_par.search(ctxb, base_r, bs, base_r, cut, lens,
-                                         dists, mask=mask)
-                conv |= mask  # refined positions are fully exact
-            if wholesale or n_refine:
-                sp.count(n_ranges=ranges)
-                count_search(ranges)
-        lens_claim = lens.copy() if parity else None
-        with profiling.span("host.dp"):
-            native.estimate_costs(lens, dists)
-        if parity and not wholesale and fetched is not None:
-            # post-DP distance fix at the chosen match starts only
-            need = native.chosen_mask(lens) & ~conv
-            n_fix = int(need.sum())
-            with profiling.span("host.dist_fix", n_dist_fix_positions=n_fix,
-                                n_ranges=0) as sp:
-                if n_fix:
-                    ranges = host_par.search(
-                        ctxb, base_r, bs, base_r, cut, lens_claim, dists,
-                        mask=need, targets=lens_claim)
-                    sp.count(n_ranges=ranges)
-                    count_search(ranges)
-                    with count_lock:
-                        add("n_dist_fix_positions", n_fix)
-        with profiling.span("host.emit"):
-            payload = native.emit_block(data[start:end], lens, dists)
-        if len(payload) < bs or legacy:
-            return payload, False
-        return data[start:end], True
-
-    # in-flight blocks (WINDOW) bound device and host result memory
-    n_cores = min(32, os.cpu_count() or 1)
-    pending = []  # (bi, start, end, entries)
-    jobs = {}     # bi -> future of (payload, stored)
-
-    # CPU assist: in parity mode every block encodes to the same bytes
-    # whichever engine it lands on, so idle host workers take whole blocks
-    # from the BACK of the stream while the device works from the front.
-    # Off in fast mode by default (the output would depend on scheduling).
-    assist_default = str(n_cores) if parity else "0"
-    n_assist = max(0, int(os.environ.get("SMALLZ4_TPU_CPU_ASSIST",
-                                         assist_default)))
-    fence = threading.Lock()
-    claim = {"front": 0, "back": len(blocks)}
-
-    def claim_front():
-        with fence:
-            if claim["front"] >= claim["back"]:
-                return -1
-            bi = claim["front"]
-            claim["front"] += 1
-            return bi
-
-    def assist_loop(parent):
-        while True:
-            with fence:
-                if claim["back"] - 1 < claim["front"]:
-                    return
-                claim["back"] -= 1
-                bi = claim["back"]
-            start, end = blocks[bi]
-            jobs[bi] = _Done(finish(bi, start, end, None, parent))
-
-    # one worker per core for the finish tail PLUS one per assist loop (an
-    # assist occupies its worker for a whole block); the native stages
-    # release the GIL
-    n_assist = min(n_assist, max(0, len(blocks) - 1))
-    pool = host_par._pool(n_cores + n_assist)
-    root = profiling.current()
-    assist_futures = [pool.submit(assist_loop, root)
-                      for _ in range(n_assist)]
-
-    def drain(limit):
-        while len(pending) > limit:
-            bi, start, end, entries = pending.pop(0)
-            fetched = collect_block(entries)
-            jobs[bi] = pool.submit(finish, bi, start, end, fetched, root)
-
-    while True:
-        bi = claim_front()
-        if bi < 0:
-            break
-        start, end = blocks[bi]
-        pending.append((bi, start, end, dispatch_block(bi, start, end)))
-        add("n_device_blocks", 1)
-        drain(WINDOW)
-    drain(0)
-
-    with profiling.span("stream.join"):  # the assist's blocks, then order
-        for f in assist_futures:
-            f.result()
-        for bi, (start, end) in enumerate(blocks):
-            payload, stored = jobs[bi].result()
-            out += fmt.build_block_header(len(payload), stored, legacy)
-            out += payload
+    _stream(out, data, varr, d, blocks, legacy, parity, counters, dispatch,
+            collect, unpack)
 
 
 def segment_group(varr: np.ndarray, vstart: int, vend: int, group,
@@ -566,65 +606,25 @@ def segment_group(varr: np.ndarray, vstart: int, vend: int, group,
 
 def _compress_sorted(out, data, vdata, d, blocks, legacy, parity, counters,
                      dev, kernel="sort", max_candidates=64):
-    """Segment-engine stream loop (the reference's
-    ``_process_block_window`` over windows of WINDOW blocks): dispatch
-    every segment group of the window to ``sortmatch.match_segments``
-    (kernel 'sort') or ``match_finder.match_segments`` ('walk'), collect
-    the results into host memory, then refine (parity mode), DP and emit
-    each block in the worker pool."""
+    """The segment engines' steps of ``_stream`` (the reference's
+    ``_process_block_window``): every segment group of a block goes to
+    ``sortmatch.match_segments`` (kernel 'sort') or
+    ``match_finder.match_segments`` ('walk'); collecting assembles the
+    block's claims in position order.  A segment engine certifies a
+    position's length and distance together (``conv``), so it stands for
+    ``lk`` too, and no chunk is redone."""
     varr = np.frombuffer(vdata, np.uint8)
     on_card = dev.type == "cuda"
     to_dev, to_host = _device_pair(on_card, dev)
-    pool = host_par._pool(None)  # persistent: workers keep warm match tables
-    count_lock = threading.Lock()  # finish() runs in the worker pool
 
-    def add(key, v):
-        with count_lock:
-            counters[key] = counters.get(key, 0) + v
-
-    def finish(start, end, lens, dists, conv, parent):
-        bs = end - start
-        with profiling.span("host.block", parent=parent, assist=0,
-                            n_positions=bs):
-            return finish_block(start, end, lens, dists, conv)
-
-    def finish_block(start, end, lens, dists, conv):
-        bs = end - start
-        vstart, vend = start + d, end + d
-        block_cut = _block_cut(start, legacy)
-        if parity:
-            mask = ~conv
-            n_refine = int(mask.sum())
-            with profiling.span("host.refine", n_refine_positions=n_refine,
-                                wholesale=0, n_ranges=0) as sp:
-                if n_refine:
-                    lo = vstart if legacy else max(vstart - HALO, 0)
-                    base_r = vstart - lo
-                    cut = (base_r - fmt.BLOCK_END_NO_MATCH if block_cut
-                           else -1)
-                    ranges = host_par.search(varr[lo:vend], base_r, bs,
-                                             base_r, cut, lens, dists,
-                                             mask=mask)
-                    sp.count(n_ranges=ranges)
-                    add("n_searches", 1)
-                    add("n_search_ranges", ranges)
-        with profiling.span("host.dp"):
-            native.estimate_costs(lens, dists)
-        with profiling.span("host.emit"):
-            payload = native.emit_block(data[start:end], lens, dists)
-        if len(payload) < bs or legacy:
-            return payload, False
-        return data[start:end], True
-
-    def dispatch(start, end):
+    def dispatch(bi, start, end):
         """Queue every segment group of one block on the device."""
         vstart, vend = start + d, end + d
-        seg_starts = list(range(vstart, vend, SEG))
-        groups = [seg_starts[g0: g0 + SEG_BATCH]
-                  for g0 in range(0, len(seg_starts), SEG_BATCH)]
-        with profiling.span("stream.dispatch", n_groups=len(groups)):
-            return [dispatch_group(vstart, vend, _block_cut(start, legacy),
-                                   group) for group in groups]
+        seg_starts = range(vstart, vend, SEG)
+        block_cut = _block_cut(start, legacy)
+        return [dispatch_group(vstart, vend, block_cut,
+                               seg_starts[g0: g0 + SEG_BATCH])
+                for g0 in range(0, len(seg_starts), SEG_BATCH)]
 
     def dispatch_group(vstart, vend, block_cut, group):
         arrays = segment_group(varr, vstart, vend, group, legacy, block_cut)
@@ -640,18 +640,15 @@ def _compress_sorted(out, data, vdata, d, blocks, legacy, parity, counters,
         if on_card:
             done = torch.cuda.Event()
             done.record()
-        add("n_dispatches", 1)
-        add("n_h2d_bytes", sum(a.nbytes for a in arrays))
-        add("n_d2h_bytes", sum(h.numel() * h.element_size() for h in host))
+        counters.add(n_dispatches=1,
+                     n_h2d_bytes=sum(a.nbytes for a in arrays),
+                     n_d2h_bytes=sum(h.numel() * h.element_size()
+                                     for h in host))
         return group, host, done
 
     def collect(start, end, entries):
-        """Wait for one block's dispatches (calling thread) and assemble
-        its position-order arrays."""
-        with profiling.span("stream.collect"):
-            return collect_block(start, end, entries)
-
-    def collect_block(start, end, entries):
+        """Wait for one block's dispatches and assemble its position-order
+        (lens, dists, conv)."""
         bs = end - start
         vstart, vend = start + d, end + d
         lens = np.empty(bs, np.int32)
@@ -668,38 +665,14 @@ def _compress_sorted(out, data, vdata, d, blocks, legacy, parity, counters,
                 dists[o: o + w] = arrays[1][r, :w]
                 if parity:
                     conv[o: o + w] = arrays[2][r, :w]
-        # block-tail rule: the last 11 positions are literals
-        tail = min(fmt.BLOCK_END_NO_MATCH - 1, bs)
-        lens[bs - tail:] = 1
-        dists[bs - tail:] = 0
-        conv[bs - tail:] = True
-        add("n_positions", bs)
-        if parity:
-            add("n_refine_positions", int(bs - conv.sum()))
         return lens, dists, conv
 
-    root = profiling.current()
-    for w0 in range(0, len(blocks), WINDOW):
-        window = blocks[w0: w0 + WINDOW]
-        queued = [dispatch(start, end) for start, end in window]
-        jobs = [pool.submit(finish, start, end,
-                            *collect(start, end, entries), root)
-                for (start, end), entries in zip(window, queued)]
-        with profiling.span("stream.join"):
-            for job in jobs:  # frame order
-                payload, stored = job.result()
-                out += fmt.build_block_header(len(payload), stored, legacy)
-                out += payload
+    def unpack(start, end, fetched):
+        lens, dists, conv = fetched
+        return lens, dists, conv, conv, np.zeros(end - start, bool)
 
-
-class _Done:
-    """A finished result with the future interface (assist blocks)."""
-
-    def __init__(self, value):
-        self._value = value
-
-    def result(self):
-        return self._value
+    _stream(out, data, varr, d, blocks, legacy, parity, counters, dispatch,
+            collect, unpack)
 
 
 def _device_resident_block_step(halo, bufs, cand, vhi, lim, cut_gram, cut_pos,
@@ -756,7 +729,7 @@ def compress_device_resident(data, block_size: int | None = None,
         raise ValueError(f"device-resident path needs block_size % {CH} == 0")
     n = len(data)
     blocks = _blocks(n, block_size)
-    counters: dict = {}
+    counters = _Counters()
     with profiling.request("encode",
                            report.stages if report is not None else None,
                            n_bytes=n, n_blocks=len(blocks)):
@@ -773,42 +746,22 @@ def compress_device_resident(data, block_size: int | None = None,
     return out
 
 
-def _resident_blocks(data: bytes, blocks, counters: dict, dev) -> bytes:
+def _resident_blocks(data: bytes, blocks, counters, dev) -> bytes:
     """The frame of ``compress_device_resident``, block after block;
     ``counters`` receives n_h2d_bytes and n_d2h_bytes."""
     CH = cm.CHUNK
-    n = len(data)
     arr = np.frombuffer(data, np.uint8)
     out = bytearray(fmt.build_frame_header(False))
     to_dev, _ = _device_pair(dev.type == "cuda", dev)
-
-    def add(key, v):
-        counters[key] = counters.get(key, 0) + v
-
     with profiling.span("resident.match"):  # the first block's halo
         halo = cm.empty_halo(chunk=CH, device=dev)  # carried block to block
     for start, end in blocks:
         bs = end - start
         n_chunks = -(-bs // CH)
         with profiling.span("resident.stage"):
-            bufs = np.zeros((n_chunks, CH + cm.LOOK), np.uint8)
-            cand = np.zeros(n_chunks, np.int32)
-            lim = np.zeros(n_chunks, np.int32)
-            for j in range(n_chunks):
-                cs = start + j * CH
-                take = max(0, min(CH + cm.LOOK, n - cs))
-                bufs[j, :take] = arr[cs: cs + take]
-                cand[j] = max(0, min(CH, bs - j * CH))
-                lim[j] = bs - j * CH - fmt.BLOCK_END_LITERALS
-            block_cut = _block_cut(start, False)
-            if block_cut:
-                cut_gram = cm.pack_cut_gram(
-                    data[start - fmt.BLOCK_END_NO_MATCH:
-                         start - fmt.BLOCK_END_NO_MATCH + 4])
-                cut_pos = CH - fmt.BLOCK_END_NO_MATCH
-            else:
-                cut_gram, cut_pos = 0, -1
-        add("n_h2d_bytes", bufs.nbytes + bs)
+            bufs, cand, lim, cut_gram, cut_pos = _chunk_rows(
+                arr, start, bs, 0, n_chunks, False)
+        counters.add(n_h2d_bytes=bufs.nbytes + bs)
         with profiling.span("resident.upload", n_h2d_bytes=bufs.nbytes + bs):
             # candidate and claim validity end together
             cand_d = to_dev(cand)
@@ -824,37 +777,19 @@ def _resident_blocks(data: bytes, blocks, counters: dict, dev) -> bytes:
             sync.count(n_dp_rounds=n_rounds)
         if not good:
             with profiling.span("resident.fallback"):
-                # the DP's round cap: the block is redone on the host (exact
-                # search, native DP and emit); the stream stays valid, only
-                # this block's bytes differ from the device path's
-                lo = max(start - HALO, 0)
-                ctx = arr[lo:end]
-                base = start - lo
-                lens = np.ones(bs, np.int32)
-                dists = np.zeros(bs, np.int32)
-                native.match_block_ex(
-                    ctx, base=base, bs=bs, level=9, lookback=base,
-                    cut_pos=base - fmt.BLOCK_END_NO_MATCH if block_cut
-                    else -1, lens=lens, dists=dists)
-                native.estimate_costs(lens, dists)
-                pay = native.emit_block(data[start:end], lens, dists)
-                if len(pay) < bs:
-                    out += fmt.build_block_header(len(pay), False, False)
-                    out += pay
-                else:
-                    out += fmt.build_block_header(bs, True, False)
-                    out += data[start:end]
+                # the DP's round cap: the block is redone by the host tail
+                # (whole search, native DP and emit; the report keeps only
+                # its byte counters); the stream stays valid, only this
+                # block's bytes differ from the device path's
+                pay = _host_tail(data, arr, 0, start, end, False, True, None,
+                                 _Counters())
+                _frame_block(out, data, start, end, pay, False)
             continue
         d2h = m + 8 if m < bs else 8
-        add("n_d2h_bytes", d2h)
+        counters.add(n_d2h_bytes=d2h)
         with profiling.span("resident.fetch", n_d2h_bytes=d2h):
-            if m < bs:
-                pay = payload[:m].cpu().numpy().tobytes()
-                out += fmt.build_block_header(m, False, False)
-                out += pay
-            else:  # stored block
-                out += fmt.build_block_header(bs, True, False)
-                out += data[start:end]
+            pay = payload[:m].cpu().numpy().tobytes() if m < bs else None
+            _frame_block(out, data, start, end, pay, False)
     out += fmt.build_end_mark(False)
     return bytes(out)
 

@@ -342,13 +342,22 @@ def test_head_overflow_redo_with_split(corpus, one_chunk_groups,
     assert native.decompress(got) == data
 
 
-def test_sort_engine_refine_with_split(corpus):
+@pytest.mark.parametrize("assist", ["0", None], ids=["no_assist",
+                                                      "assist"])
+def test_sort_engine_refine_with_split(corpus, monkeypatch, assist):
+    """The sort engine's refine split, every block on the engine; with the
+    CPU assist (the default in parity mode) whole blocks may go to the
+    host search instead, and the stream is the same."""
+    if assist is not None:
+        monkeypatch.setenv("SMALLZ4_TPU_CPU_ASSIST", assist)
     data = _stream(corpus, 700_000)
     stats = {}
     got = pipeline.compress(data, 9, device="cpu", kernel="sort",
                             block_size=1 << 19, stats=stats)
     assert got == native.compress(data, 9, block_size=1 << 19)
     assert stats["n_search_ranges"] > stats["n_searches"]
+    if assist is not None:
+        assert stats["n_dispatches"] == 2 and stats["n_device_blocks"] == 2
 
 
 def test_searches_below_the_floor_take_one_call(corpus, monkeypatch):

@@ -18,8 +18,9 @@ in shared memory, global pointer jumping runs over the entries only):
 port's and the JAX package's ``_policy_eval`` at a tile of 64 and at the
 kernel's.  The synthetic worst cases of ``chip_smoke.parse_claims``
 (claims that land on tile edges and on limit, every position an entry,
-N not a multiple of the tile, seeded claims across many tiles) run here
-at N <= 2^17 against the JAX package and at phase 3e's sizes on the card.
+N not a multiple of the tile, seeded claims across many tiles) run at N <=
+2^17 against the JAX package (tests/test_torch_parse_claims.py) and at
+phase 3e's sizes on the card.
 """
 import lzma
 import pathlib
@@ -117,6 +118,18 @@ def _inputs(case: str):
     return (*parse_claims(np, case, CLAIM_N[case], seed=13), None)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The plain policy iteration runs many tensor operations over up to
+    2^17 positions; with several test workers on one host, torch's
+    intra-op threads oversubscribe the cores and stall each other (this
+    file took 47 s alone and 15 minutes beside one other such worker)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.fixture(scope="module")
 def jparse():
     pytest.importorskip("jax")
@@ -141,8 +154,15 @@ def _port(dl, dd, n, max_iters=48, device="cpu"):
                                   max_iters)
 
 
-@pytest.mark.parametrize("case", list(CASES) + list(PARSE_CASES))
+@pytest.mark.parametrize("case", list(CASES))
 def test_estimate_costs_equals_reference(jparse, case):
+    """The blocks of CASES; parse_claims' cases are in
+    tests/test_torch_parse_claims.py, so that a run split by file takes
+    the longest cases on two workers."""
+    estimate_costs_equals_reference(jparse, case)
+
+
+def estimate_costs_equals_reference(jparse, case):
     dl, dd, n, data = _inputs(case)
     want_choice, want_cost, want_conv = _reference(jparse, dl, dd, n, 48)
     choice, cost, conv = parse.estimate_costs_device(

@@ -229,7 +229,10 @@ def _sort_case(name):
 
 @pytest.mark.parametrize("name", ["multi_block", "legacy_single_block",
                                   "dictionary"])
-def test_sort_engine_parity(name):
+def test_sort_engine_parity(name, monkeypatch):
+    """Every block on the sort engine (no CPU assist, which would take
+    whole blocks off it in parity mode), as the counts say."""
+    monkeypatch.setenv("SMALLZ4_TPU_CPU_ASSIST", "0")
     data, kw = _sort_case(name)
     stats = {}
     got = _compress(data, stats=stats, **kw)
@@ -276,14 +279,24 @@ def _multiblock_data():
     return (piece + b"needle in a haystack " * 2000 + piece) * 2
 
 
-def test_walk_engine_multiblock_parity():
+@pytest.mark.parametrize("assist", ["0", None], ids=["no_assist",
+                                                      "assist"])
+def test_walk_engine_multiblock_parity(monkeypatch, assist):
+    """Both blocks on the walk engine without the CPU assist; with it (the
+    default in parity mode) the assist may take whole blocks, and the
+    stream is the same."""
+    if assist is not None:
+        monkeypatch.setenv("SMALLZ4_TPU_CPU_ASSIST", assist)
     data = _multiblock_data()
     stats = {}
     got = _compress(data, block_size=131072, kernel="walk", max_candidates=8,
                     stats=stats)
     assert got == native.compress(data, 9, block_size=131072)
     assert native.decompress(got) == data
-    assert stats["n_dispatches"] == 2
+    # one dispatch a device block
+    assert stats.get("n_dispatches", 0) == stats.get("n_device_blocks", 0)
+    if assist is not None:
+        assert stats["n_dispatches"] == 2
 
 
 def test_walk_engine_fast_stream_equals_reference_engine(reference_native):
@@ -381,9 +394,10 @@ def test_pipeline_on_cuda_equals_native(tiny):
 
 
 @pytest.mark.cuda
-def test_sort_engine_on_cuda_equals_native():
+def test_sort_engine_on_cuda_equals_native(monkeypatch):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
+    monkeypatch.setenv("SMALLZ4_TPU_CPU_ASSIST", "0")  # both blocks here
     data = _mixed_stream(200_000, seed=41)
     _cuda.reset_counts()
     got = pipeline.compress(data, 9, block_size=100_000, device="cuda")
@@ -394,9 +408,10 @@ def test_sort_engine_on_cuda_equals_native():
 
 
 @pytest.mark.cuda
-def test_walk_engine_on_cuda_equals_native():
+def test_walk_engine_on_cuda_equals_native(monkeypatch):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
+    monkeypatch.setenv("SMALLZ4_TPU_CPU_ASSIST", "0")  # both blocks here
     data = _multiblock_data()
     _cuda.reset_counts()
     got = pipeline.compress(data, 9, block_size=131072, device="cuda",

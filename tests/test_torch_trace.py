@@ -31,7 +31,8 @@ PARITY_SPANS = {"encode", "stream.dispatch", "stream.group", "stream.collect",
                 "host.dp", "host.dist_fix", "host.emit"}
 RESIDENT_SPANS = {"encode", "resident.stage", "resident.upload",
                   "resident.match", "resident.dp", "resident.emit",
-                  "resident.sync", "resident.fetch", "resident.fallback"}
+                  "resident.sync", "resident.fetch", "resident.fallback",
+                  "host.refine", "host.dp", "host.emit"}
 POOL_SPANS = {"host.block", "host.unpack", "host.refine", "host.dp",
               "host.dist_fix", "host.emit"}
 
@@ -203,9 +204,16 @@ def test_pool_spans_carry_the_request_and_a_parent(traced):
     assists = [r.counts["assist"] for r in traced.reqs[1]
                if r.name == "host.block"]
     assert 1 in assists and 0 in assists
-    on_main = {r.name for q in traced.reqs for r in q
+    on_main = {r.name for q in traced.reqs[:2] for r in q
                if r.thread_id == main}
     assert not on_main & POOL_SPANS
+    # the resident fallback runs the host tail on the calling thread
+    by_id = {r.span_id: r for r in traced.reqs[3]}
+    tail = [r for r in traced.reqs[3] if r.name.startswith("host.")]
+    assert {r.name for r in tail} == {"host.refine", "host.dp", "host.emit"}
+    assert all(r.thread_id == main
+               and by_id[r.parent_id].name == "resident.fallback"
+               for r in tail)
 
 
 def test_root_record_agrees_with_its_profiler_event(traced):
